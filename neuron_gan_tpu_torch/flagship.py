@@ -1,0 +1,43 @@
+"""The flagship configuration of the port, in one place.
+
+The reference's config_ex.py geometry (counterpart of
+neuron_gan_tpu/flagship.py): 6 levels from 16^2 to 512^2, G features
+(128, 64, 32, 32, 16, 16), D features (16, 16, 32, 32, 64, 128), latent 64,
+batch 8, n_critic 1, lambda_gp 10, drift 1e-3, Adam beta1 0.5, lr 1e-4.
+
+Execution: unpacked layout, float32, TF32 off (precision 'highest'), the
+CUDA LeakyReLU + PixelNorm kernel pair in every G/D block, and the
+reference-exact augmentation.  The JAX package's shipping defaults (packed
+layout, 'mixed' precision, fast/shear augmentation) are later slices of the
+port (ROADMAP A5, A6, A11).
+"""
+
+from neuron_gan_tpu_torch.models import PGConfig
+from neuron_gan_tpu_torch.train_step import ChunkSpec
+
+
+def flagship_config(**overrides):
+    kw = dict(
+        n_gen_features=(128, 64, 32, 32, 16, 16),
+        n_dis_features=(16, 16, 32, 32, 64, 128),
+        latent_dim=64, image_size_init=16, n_colors=1,
+        compute_dtype='float32', precision='highest', use_kernels=True,
+    )
+    kw.update(overrides)
+    return PGConfig(**kw)
+
+
+def flagship_chunk_spec(phase, fading=False, **overrides):
+    """ChunkSpec for one flagship chunk; lr_gamma/lr_cap mirror config_ex's
+    25k-epoch phases, crop_size is the dataset maximum (512)."""
+    kw = dict(
+        phase=phase, fading=fading, n_critic=1, batch_size=8,
+        n_images=16, shuffle=True, crop_size=512, translation=0.05,
+        augment=True, gp_lambda=10.0, drift_epsilon=0.001, sim_lambda0=0.0,
+        sim_decay=0.0, beta1=0.5, rmsprop=False, lr0=1e-4,
+        lr_gamma=0.9998157, lr_boundary=0, lr_cap=12500, alpha_start=0,
+        alpha_step=1e-4, latent_dim=64,
+        fast_augment=False, shear_warp=False,
+    )
+    kw.update(overrides)
+    return ChunkSpec(**kw)
