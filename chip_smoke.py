@@ -4,27 +4,32 @@ check it.
 
     python3 chip_smoke.py [--seed N]
 
+Two paths of the port are driven, both at the flagship geometry (16^2 ..
+512^2, float32, TF32 off): the unpacked layout (``flagship_config``) and
+the 2x2 packed layout with every kernel on (``flagship_packed_config``).
+
 Phases, each printing one JSON line:
 
 1. env      torch/CUDA versions and the card (nvidia-smi name, power limit);
-2. build    every CUDA kernel of the port, built from csrc/ with nvcc;
+2. build    every CUDA kernel of the port, built from csrc/ with nvcc, all
+            sources at once;
 3. kernels  each kernel against its plain PyTorch version on the card, at
-            every shape the training path gives it (plus 4 groups and
-            bfloat16), forward, backward and a GP-style second order; the
-            kernel's and the plain version's times at the largest shape;
-4. train    the port's main path: flagship-width PGGAN (16^2 .. 512^2,
-            random weights from --seed) trained with WGAN-GP + drift through
-            the epoch runner under a schedule that visits every phase and
-            fade-in and ends at steady 512^2; stats must be finite and the
-            kernels' launch counters must rise by exactly the count the path
-            implies; then steps/s over steady 512^2 steps;
-5. parity   one 512^2 batch step with the kernels, with the plain composed
-            ops, and with the plain ops in float64, same parameters and
-            draws, TF32 off: the stats and G's gradients must agree
-            elementwise (rtol 1e-4, atol 1e-5), and each network's
-            gradient within ``REL_L2_BOUND`` of the plain path and of
-            float64; two planted faults in the epilogue must fail that
-            bound (see ``parity``).
+            every shape a training path gives it (plus a ragged case):
+            forward, backward and a GP-style second order; each kernel's,
+            its plain version's and (for the packed conv) F.conv2d's times
+            at the largest shape;
+4. train    for each path: the PGGAN, random weights from --seed, trained
+            with WGAN-GP + drift through the epoch runner under a schedule
+            that visits every phase and fade-in and ends at steady 512^2;
+            stats must be finite and every kernel's launch counter must rise
+            by exactly the count the path implies (K1/K2 by grouping); then
+            steps/s over steady 512^2 steps;
+5. parity   for each path, one 512^2 batch step with the kernels, with the
+            plain ops, and with the plain ops in float64, same parameters
+            and draws, TF32 off (the packed path also against the plain
+            unpacked step): each network's gradient must lie within the
+            path's relative-L2 bound of the plain path and of float64, and
+            two planted faults must fail that bound (see ``parity``).
 
 Then the kernel table (one JSON line), the card's nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the script
@@ -32,6 +37,7 @@ exits non-zero without that line; without CUDA it exits 2 at once.
 """
 
 import argparse
+import collections
 import dataclasses
 import json
 import subprocess
@@ -72,17 +78,30 @@ def cuda_ms(fn, iters=30, warmup=3):
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 
-# every LReLU + PixelNorm epilogue shape of the flagship path at batch 8:
-# G blocks (C, R) and D blocks (C, R)
+# every LReLU + PixelNorm epilogue shape of the unpacked flagship path at
+# batch 8: G blocks (C, R) and D blocks (C, R)
 G_SHAPES = [(64, 32), (32, 64), (32, 128), (16, 256), (16, 512)]
 D_SHAPES = [(16, 256), (32, 128), (32, 64), (64, 32), (128, 16)]
+# every packed conv2 of the packed flagship path at batch 8, (N, packed
+# side): G blocks 1-4, then D blocks 0-2; K = N.  The packed conv1
+# epilogues (K1 at 4 groups) take the same shapes.
+PACKED_SHAPES = [(128, 32), (128, 64), (64, 128), (64, 256),
+                 (64, 128), (128, 64), (128, 32)]
+
+
+def rel_l2(xs, ys):
+    """Relative L2 distance of two lists of tensors, taken as one vector."""
+    num = sum(((x.double() - y.double()) ** 2).sum() for x, y in zip(xs, ys))
+    den = sum((y.double() ** 2).sum() for y in ys)
+    return (num / den).sqrt().item()
 
 
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_kernels(torch, lpn, seed):
+def check_epilogue_kernels(torch, lpn, seed):
+    """K1/K2 (the LReLU + PixelNorm pair) against their plain versions."""
     gen = torch.Generator(device='cuda').manual_seed(seed)
     dev = 'cuda'
     err = {'fwd': 0.0, 'bwd': 0.0}
@@ -112,7 +131,8 @@ def check_kernels(torch, lpn, seed):
     bf16 = dict(rtol=2e-2, atol=2e-2)
     for c, r in G_SHAPES + D_SHAPES:
         check((8, c, r, r), 1, torch.float32, f32_f, f32_b)
-    check((8, 64, 32, 32), 4, torch.float32, f32_f, f32_b)
+    for n, s in sorted(set(PACKED_SHAPES)):
+        check((8, n, s, s), 4, torch.float32, f32_f, f32_b)
     check((8, 64, 16, 16), 8, torch.float32, f32_f, f32_b)
     check((3, 16, 5, 7), 1, torch.float32, f32_f, f32_b)     # ragged tail
     check((8, 16, 256, 256), 1, torch.bfloat16, bf16, bf16)
@@ -142,7 +162,7 @@ def check_kernels(torch, lpn, seed):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
         checked.append({'gp_second_order': list(shape), 'n_groups': n_groups})
 
-    # times at the largest shape of the path, (8, 16, 512, 512) float32
+    # times at the largest shape of the unpacked path, (8, 16, 512, 512)
     shape = (8, 16, 512, 512)
     x, g = randn(shape), randn(shape)
     numel = x.numel()
@@ -158,31 +178,219 @@ def check_kernels(torch, lpn, seed):
         'fwd': max(2 * numel * 4 / HBM_BYTES_PER_S, 6 * numel / F32_OPS_PER_S),
         'bwd': max(3 * numel * 4 / HBM_BYTES_PER_S, 12 * numel / F32_OPS_PER_S),
     }
-    return err, checked, times, bounds, shape
+    return {'max_abs_err': err, 'checked': checked, 'timed_shape': list(shape),
+            **times, 'bound_ms': {k: v * 1e3 for k, v in bounds.items()}}
+
+
+# Tolerances of the packed conv pair against its plain version (cuDNN's
+# float32 conv, TF32 off), set from readings on an H100 (PERF.md).  y, r
+# and dz elementwise.  dx and dw elementwise (atol relative to the
+# tensor's largest magnitude) against the conv adjoints of the plain dz of
+# the kernel's own (y, r); against the fully plain autograd, and for the GP
+# second order, only as one vector by relative L2: the kernel's and
+# cuDNN's pre-activations differ by rounding, and where one lies within
+# that of 0, LeakyReLU's slope differs (1 against 0.2) for that element.
+PACKED_TOL = {
+    'fwd': dict(rtol=1e-4, atol=1e-5),
+    'dz': dict(rtol=1e-4, atol=1e-5),
+    # atol / max |ref| for dx, dw on the kernel's y, r: dw sums up to
+    # B*H*W = 524,288 products, in an order cuDNN's wgrad may change from
+    # run to run (1e-5 of the largest entry failed on an H100)
+    'grad': 1e-4,
+    'rel_l2': 1e-3,      # dx, dw and the GP gradients against plain autograd
+}
+
+
+def packed_case(torch, gen, b, k, n, h, w):
+    """x (b, k, h, w) and an equalized packed kernel (n, k, 3, 3) built from
+    a random original kernel, as the path builds it (3/4 zeros); a dense
+    random one where k or n is not a multiple of 4."""
+    from neuron_gan_tpu_torch.ops import packed as pk
+    x = torch.randn((b, k, h, w), generator=gen, device='cuda')
+    if k % 4 or n % 4:
+        wp = 0.1 * torch.randn((n, k, 3, 3), generator=gen, device='cuda')
+    else:
+        w = torch.randn((n // 4, k // 4, 3, 3), generator=gen, device='cuda')
+        wp = pk.pack_conv3x3_weight(w, pk._eq_scale3x3(w, 0.2))
+    return x, wp
+
+
+def _close_scaled(torch, got, want, rel_atol):
+    atol = rel_atol * want.abs().max().item()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=atol)
+
+
+def check_packed_kernels(torch, pcl, seed):
+    """K3/K4 (the fused packed conv pair) against their plain versions."""
+    from neuron_gan_tpu_torch.runtime import precision_scope
+    gen = torch.Generator(device='cuda').manual_seed(seed + 7)
+    err = {'conv': 0.0, 'r': 0.0, 'dz': 0.0, 'dx': 0.0, 'dw': 0.0,
+           'grad_rel_l2': 0.0, 'gp_rel_l2': 0.0}
+    checked = []
+
+    def pair(fn, x, wp, ct_y, ct_r):
+        xr, wr = x.clone().requires_grad_(), wp.clone().requires_grad_()
+        y, r = fn(xr, wr)
+        dx, dw = torch.autograd.grad((y, r), (xr, wr), (ct_y, ct_r))
+        return y.detach(), r.detach(), dx, dw
+
+    def check(b, k, n, h, w):
+        x, wp = packed_case(torch, gen, b, k, n, h, w)
+        ct_y = torch.randn((b, n, h, w), generator=gen, device='cuda')
+        ct_r = torch.randn((b, 4, h, w), generator=gen, device='cuda')
+        y, r, dx, dw = pair(lambda a, v: pcl.PackedConvLReluPN.apply(
+            a, v, 0.2, 1e-8), x, wp, ct_y, ct_r)
+        y0, r0, dx0, dw0 = pair(pcl.packed_conv_lrelu_pn_plain, x, wp, ct_y,
+                                ct_r)
+        dz = pcl._dz(y, r, ct_y, ct_r, 0.2)
+        dz0 = pcl.packed_dz_plain(y, r, ct_y, ct_r)
+        dx1, dw1, _ = torch.ops.aten.convolution_backward(
+            dz0, x, wp, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+            [True, True, False])
+        torch.cuda.synchronize()
+        torch.testing.assert_close(y, y0, **PACKED_TOL['fwd'])
+        torch.testing.assert_close(r, r0, **PACKED_TOL['fwd'])
+        torch.testing.assert_close(dz, dz0, **PACKED_TOL['dz'])
+        _close_scaled(torch, dx, dx1, PACKED_TOL['grad'])
+        _close_scaled(torch, dw, dw1, PACKED_TOL['grad'])
+        dist = max(rel_l2([dx], [dx0]), rel_l2([dw], [dw0]))
+        assert dist <= PACKED_TOL['rel_l2'], (b, k, n, h, w, dist)
+        for key, a, b_ in (('conv', y, y0), ('r', r, r0), ('dz', dz, dz0),
+                           ('dx', dx, dx1), ('dw', dw, dw1)):
+            err[key] = max(err[key], (a - b_).abs().max().item())
+        err['grad_rel_l2'] = max(err['grad_rel_l2'], dist)
+        checked.append({'x': [b, k, h, w], 'n': n})
+
+    # GP-style second order through both Functions, ct_r live: per-input-
+    # channel scales, a random linear readout, gradient w.r.t. the scales
+    # and the kernel (the harness of the epilogue check above and of
+    # tests/test_torch_packed.py)
+    def gp_grads(fn, x, wp, c, s0):
+        s, w = s0.clone().requires_grad_(), wp.clone().requires_grad_()
+        xr = x.clone().requires_grad_()
+        gx, = torch.autograd.grad((fn(xr * s, w)[0] * c).sum(), xr,
+                                  create_graph=True)
+        norms = torch.sqrt((gx ** 2).sum(dim=(1, 2, 3)))
+        return torch.autograd.grad(((norms - 1.0) ** 2).sum(), (s, w))
+
+    def check_gp(b, k, n, h, w):
+        x, wp = packed_case(torch, gen, b, k, n, h, w)
+        c = 0.1 * torch.randn((b, n, h, w), generator=gen, device='cuda')
+        s0 = 0.5 + torch.rand((1, k, 1, 1), generator=gen, device='cuda')
+        got = gp_grads(lambda a, v: pcl.PackedConvLReluPN.apply(
+            a, v, 0.2, 1e-8), x, wp, c, s0)
+        want = gp_grads(pcl.packed_conv_lrelu_pn_plain, x, wp, c, s0)
+        dist = max(rel_l2([a], [b_]) for a, b_ in zip(got, want))
+        assert dist <= PACKED_TOL['rel_l2'], (b, k, n, h, w, dist)
+        err['gp_rel_l2'] = max(err['gp_rel_l2'], dist)
+        checked.append({'gp_second_order': [b, k, h, w], 'n': n})
+
+    with precision_scope('highest'):
+        for n, side in PACKED_SHAPES:
+            check(8, n, n, side, side)
+        check(3, 20, 32, 5, 37)                  # ragged: K, H and W tails
+        check(2, 64, 16, 9, 33)                  # the narrowest width
+        for shape in ((2, 64, 64, 8, 8), (8, 128, 128, 32, 32),
+                      (8, 64, 64, 128, 128)):
+            check_gp(*shape)
+
+        # times at the largest shape of the path, x (8, 64, 256, 256)
+        b, k, n, side = 8, 64, 64, 256
+        x, wp = packed_case(torch, gen, b, k, n, side, side)
+        y, r = pcl._conv_fwd(x, wp, 0.2, 1e-8)
+        g = torch.randn_like(y)
+        ct_r = torch.randn_like(r)
+        times = {
+            'conv_ms': cuda_ms(lambda: pcl._conv_fwd(x, wp, 0.2, 1e-8)),
+            'conv_plain_ms': cuda_ms(
+                lambda: pcl.packed_conv_lrelu_pn_plain(x, wp)),
+            'conv_library_ms': cuda_ms(lambda: torch.nn.functional.conv2d(
+                x, wp, padding=1)),
+            'dz_ms': cuda_ms(lambda: pcl._dz(y, r, g, ct_r, 0.2)),
+            'dz_plain_ms': cuda_ms(
+                lambda: pcl.packed_dz_plain(y, r, g, ct_r)),
+        }
+    # least work: the conv's multiply-adds over the nonzero taps of this
+    # w_packed (3/4 of a packed kernel are zeros by construction), then
+    # the epilogue; the dense count, what K3 does, is reported beside it
+    pix = b * side * side
+    conv_bytes = 4 * (pix * k + n * k * 9 + pix * n + pix * 4)
+    conv_ops = 2 * int(torch.count_nonzero(wp)) * pix + 8 * pix * n
+    conv_dense_ops = 2 * 9 * k * n * pix + 8 * pix * n
+    dz_bytes = 4 * (3 * pix * n + 2 * pix * 4)
+    dz_ops = 12 * pix * n
+
+    def bound(n_bytes, n_ops):
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+        return (max(t_bytes, t_ops) * 1e3,
+                'bytes' if t_bytes > t_ops else 'operations')
+
+    bounds = {'conv': bound(conv_bytes, conv_ops),
+              'conv_dense': bound(conv_bytes, conv_dense_ops),
+              'dz': bound(dz_bytes, dz_ops)}
+    return {'max_abs_err': err, 'checked': checked,
+            'timed_x': [b, k, side, side], 'timed_n': n, **times,
+            'bytes': {'conv': conv_bytes, 'dz': dz_bytes},
+            'flop': {'conv': conv_ops, 'conv_dense': conv_dense_ops,
+                     'dz': dz_ops},
+            'bound_ms': {key: v[0] for key, v in bounds.items()},
+            'bound_by': {key: v[1] for key, v in bounds.items()}}
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the main path
+# phase 4: the main paths
 # ---------------------------------------------------------------------------
 
-def expected_launches(phases_per_step):
-    """K1/K2 launches of batch steps at these phases: per step, 2*phase
-    epilogues per G or D forward; 7 forwards and 6 backwards (the GP's
-    inner and outer passes included), as tests/test_torch_train_step.py
-    counts on the CPU."""
-    return (sum(14 * p for p in phases_per_step),
-            sum(12 * p for p in phases_per_step))
+def expected_launches(cfg, phases_per_step):
+    """Kernel launches of batch steps of ``cfg`` at these phases, as
+    tests/test_torch_train_step.py counts them on the CPU.
+
+    Per step: G runs 3 forwards and 1 backward; D runs 4 forwards (real,
+    fake, the GP's interpolate, the generator step) and 5 backwards (real,
+    fake, the GP's inner pass, the GP's outer pass back through the
+    interpolate's forward, the generator step).  At phase p, G's blocks run
+    at resolution(1..p) and D's at resolution(0..p-1); an unpacked block
+    has two K1 epilogues, a packed one a K1 epilogue at 4 groups (conv1)
+    and a K3 (conv2).  Each K1 forward has its K2 in a backward, each K3
+    its K4."""
+    from neuron_gan_tpu_torch.models.pggan import _want_packed
+    k1, k2 = collections.Counter(), collections.Counter()
+    k3 = k4 = 0
+    for p in phases_per_step:
+        g_pk = sum(_want_packed(cfg, cfg.resolution(i + 1)) for i in range(p))
+        d_pk = sum(_want_packed(cfg, cfg.resolution(i)) for i in range(p))
+        if cfg.use_kernels:
+            k1[1] += 3 * 2 * (p - g_pk) + 4 * 2 * (p - d_pk)
+            k2[1] += 1 * 2 * (p - g_pk) + 5 * 2 * (p - d_pk)
+            k1[4] += 3 * g_pk + 4 * d_pk
+            k2[4] += 1 * g_pk + 5 * d_pk
+            k3 += 3 * g_pk + 4 * d_pk
+            k4 += 1 * g_pk + 5 * d_pk
+    return {'k1': dict(+k1), 'k2': dict(+k2), 'k3': k3, 'k4': k4}
 
 
-def train(torch, seed):
-    from neuron_gan_tpu_torch.flagship import flagship_chunk_spec, flagship_config
+def reset_counters():
+    import neuron_gan_tpu_torch.ops.lrelu_pixel_norm as lpn
+    import neuron_gan_tpu_torch.ops.packed_conv_lrelu_pn as pcl
+    lpn.fwd_launches.clear()
+    lpn.bwd_launches.clear()
+    pcl.conv_launches = pcl.dz_launches = 0
+
+
+def read_counters():
+    import neuron_gan_tpu_torch.ops.lrelu_pixel_norm as lpn
+    import neuron_gan_tpu_torch.ops.packed_conv_lrelu_pn as pcl
+    return {'k1': dict(lpn.fwd_launches), 'k2': dict(lpn.bwd_launches),
+            'k3': pcl.conv_launches, 'k4': pcl.dz_launches}
+
+
+def train(torch, seed, cfg, name):
+    from neuron_gan_tpu_torch.flagship import flagship_chunk_spec
     from neuron_gan_tpu_torch.models import DiscriminatorPG, GeneratorPG
     from neuron_gan_tpu_torch.schedule import TrainSchedule
     from neuron_gan_tpu_torch.train_step import (
         init_train_state, make_epoch_runner, spec_for_chunk)
-    import neuron_gan_tpu_torch.ops.lrelu_pixel_norm as lpn
 
-    cfg = flagship_config()
     init = torch.Generator().manual_seed(seed)
     state = init_train_state(GeneratorPG(cfg, init, device='cuda'),
                              DiscriminatorPG(cfg, init, device='cuda'))
@@ -197,7 +405,9 @@ def train(torch, seed):
     steps_per_epoch = base.n_images // base.batch_size
     n_timed_epochs = 5
 
-    lpn.fwd_launches = lpn.bwd_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_counters()
     chunks, step_phases = [], []
     t_run = time.perf_counter()
     for start, end in sched.plan_chunks(1, sched.n_epochs + 1):
@@ -206,7 +416,7 @@ def train(torch, seed):
         stats = make_epoch_runner(cfg, spec, end - start + 1)(
             state, images, rng, start)
         stats = stats.cpu().numpy()
-        assert np.isfinite(stats).all(), (start, stats)
+        assert np.isfinite(stats).all(), (name, start, stats)
         chunks.append({'epochs': [start, end], 'phase': spec.phase,
                        'fading': spec.fading,
                        'seconds': round(time.perf_counter() - t0, 3),
@@ -222,12 +432,11 @@ def train(torch, seed):
     t0 = time.perf_counter()
     stats = run(state, images, rng, sched.n_epochs + 1).cpu().numpy()
     dt = time.perf_counter() - t0
-    assert np.isfinite(stats).all(), stats
+    assert np.isfinite(stats).all(), (name, stats)
     step_phases += [spec.phase] * steps_per_epoch * n_timed_epochs
-
-    launches = {'fwd': lpn.fwd_launches, 'bwd': lpn.bwd_launches}
-    want = expected_launches(step_phases)
-    assert (launches['fwd'], launches['bwd']) == want, (launches, want)
+    launches = read_counters()
+    want = expected_launches(cfg, step_phases)
+    assert launches == want, (name, launches, want)
 
     with torch.no_grad():
         z = torch.randn(8, cfg.latent_dim, generator=rng, device='cuda')
@@ -235,7 +444,8 @@ def train(torch, seed):
     assert img.shape == (8, 1, 512, 512) and torch.isfinite(img).all()
     assert img.abs().max().item() <= 1.0
     return {
-        'phase': 'train', 'chunks': chunks, 'steps': len(step_phases),
+        'phase': 'train', 'path': name, 'chunks': chunks,
+        'steps': len(step_phases),
         'schedule_seconds': round(schedule_s, 3),
         'steady_512_steps': steps_per_epoch * n_timed_epochs,
         'steady_512_steps_per_s': steps_per_epoch * n_timed_epochs / dt,
@@ -250,37 +460,84 @@ def train(torch, seed):
 # ---------------------------------------------------------------------------
 
 # how far each network's gradient, as one vector, may lie from the plain
-# path's and from the float64 reference's, by relative L2 error: about 3x
-# the larger of the kernel path's and the float32 plain path's readings at
-# 512^2 on an H100 (PERF.md)
-REL_L2_BOUND = {'D': 2e-3, 'G': 3e-3}
+# path's and from the float64 reference's (and, packed, from the plain
+# unpacked path's), by relative L2 error: about 3x the largest reading of
+# a run without a fault at 512^2 on an H100 (PERF.md): unpacked D 5.83e-4,
+# G 1.01e-3; packed D 5.87e-4, G 1.23e-3
+REL_L2_BOUND = {'unpacked': {'D': 2e-3, 'G': 3e-3},
+                'packed': {'D': 2e-3, 'G': 4e-3}}
 
 
-def parity(torch, seed, cfg_k, spec, raw):
+def _plain(cfg):
+    return dataclasses.replace(cfg, use_kernels=False)
+
+
+def _faults(torch, cfg):
+    """Two planted faults on the kernel path of ``cfg``, as mock patches.
+
+    Unpacked path: the epilogue's second order zeroed
+    (``LReluPixelNormBwd``'s backward returns zeros); the epilogue run in
+    bfloat16.  Packed path: the r cotangent dropped in the fused conv's
+    backward (what the GP's outer pass sends back through the saved r);
+    the dz kernel's second order zeroed (``Dz``'s backward returns
+    zeros)."""
+    if cfg.packed_min_res is not None:
+        import neuron_gan_tpu_torch.ops.packed_conv_lrelu_pn as pcl
+        real = pcl.PackedConvLReluPN.backward
+
+        def no_ct_r(ctx, ct_y, ct_r):
+            return real(ctx, ct_y, torch.zeros_like(ct_r))
+
+        def dz_no_second_order(ctx, ct):
+            return (*(torch.zeros_like(t) for t in ctx.saved_tensors), None)
+
+        return {
+            'ct_r_dropped': [mock.patch.object(
+                pcl.PackedConvLReluPN, 'backward', staticmethod(no_ct_r))],
+            'dz_no_second_order': [mock.patch.object(
+                pcl.Dz, 'backward', staticmethod(dz_no_second_order))],
+        }
+    import neuron_gan_tpu_torch.ops.lrelu_pixel_norm as lpn
+
+    def no_second_order(ctx, ct):
+        x, g = ctx.saved_tensors
+        return torch.zeros_like(x), torch.zeros_like(g), None, None, None
+
+    fwd, bwd = lpn._fwd, lpn._bwd
+    return {
+        'no_second_order': [mock.patch.object(
+            lpn.LReluPixelNormBwd, 'backward', staticmethod(no_second_order))],
+        'bf16_epilogue': [
+            mock.patch.object(lpn, '_fwd', lambda x, *a: fwd(
+                x.bfloat16(), *a).float()),
+            mock.patch.object(lpn, '_bwd', lambda x, g, *a: bwd(
+                x.bfloat16(), g.bfloat16(), *a).float())],
+    }
+
+
+def parity(torch, seed, cfg_k, spec, raw, name='unpacked'):
     """Kernel path against plain path on one batch step (512^2 on the card).
 
     Runs of the step on ``raw`` with the same parameters and draws, TF32
     off: the kernel path; the plain path (composed ops); the plain path in
-    float64, the reference; and the kernel path with one of two planted
-    faults -- the epilogue's second order zeroed (``LReluPixelNormBwd``'s
-    backward returns zeros), or the epilogue run in bfloat16.  The learning
-    rate is 0, so every run's generator gradients are taken against the
-    same critic.
+    float64, the reference; for a packed config also the plain unpacked
+    path (packing is exact up to reordered sums); and the kernel path with
+    each of two planted faults (``_faults``).  The learning rate is 0, so
+    every run's generator gradients are taken against the same critic.
 
-    Held: the stats and G's gradients elementwise at rtol 1e-4 / atol 1e-5
-    against the plain path; each network's gradient within
-    ``REL_L2_BOUND`` of the plain path and of float64; and each faulty run
-    outside that bound.  D's gradients are held only as one vector: at
-    512^2 a few hundred of their elements move beyond the elementwise
-    tolerance under a rounding change in the epilogue (the counts are
-    reported)."""
+    Held: each network's gradient within ``REL_L2_BOUND[name]`` of the
+    plain path and of float64 (and, packed, of the unpacked plain path);
+    the stats and G's gradients elementwise at rtol 1e-4 / atol 1e-5
+    against the plain path; each faulty run outside the bound.  D's
+    gradients are held only as one vector: at 512^2 a few hundred of their
+    elements move beyond the elementwise tolerance under a rounding change
+    in the epilogue (the counts are reported)."""
     from neuron_gan_tpu_torch.models import DiscriminatorPG, GeneratorPG
     from neuron_gan_tpu_torch.train_step import (
         draw_batch, init_train_state, make_batch_step)
-    import neuron_gan_tpu_torch.ops.lrelu_pixel_norm as lpn
 
     dev = raw.device
-    cfg_p = dataclasses.replace(cfg_k, use_kernels=False)
+    cfg_p = _plain(cfg_k)
     draws = draw_batch(torch.Generator(device=dev).manual_seed(seed), cfg_k,
                        spec, raw.shape[0], raw.shape[1])
 
@@ -302,65 +559,59 @@ def parity(torch, seed, cfg_k, spec, raw):
 
     runs = {'kernel': one_step(cfg_k), 'plain': one_step(cfg_p),
             'float64': one_step(cfg_p, torch.float64)}
-
-    def no_second_order(ctx, ct):
-        x, g = ctx.saved_tensors
-        return torch.zeros_like(x), torch.zeros_like(g), None, None, None
-
-    fwd, bwd = lpn._fwd, lpn._bwd
-    faults = {
-        'no_second_order': [mock.patch.object(
-            lpn.LReluPixelNormBwd, 'backward', staticmethod(no_second_order))],
-        'bf16_epilogue': [
-            mock.patch.object(lpn, '_fwd', lambda x, *a: fwd(
-                x.bfloat16(), *a).float()),
-            mock.patch.object(lpn, '_bwd', lambda x, g, *a: bwd(
-                x.bfloat16(), g.bfloat16(), *a).float())],
-    }
-    for name, patches in faults.items():
+    refs = ['plain', 'float64']
+    if cfg_k.packed_min_res is not None:
+        runs['unpacked'] = one_step(dataclasses.replace(cfg_p,
+                                                        packed_min_res=None))
+        refs.append('unpacked')
+    faults = _faults(torch, cfg_k)
+    for fault, patches in faults.items():
         for p in patches:
             p.start()
         try:
-            runs[name] = one_step(cfg_k)
+            runs[fault] = one_step(cfg_k)
         finally:
             for p in patches:
                 p.stop()
-
-    def rel_l2(xs, ys):
-        num = sum(((x - y) ** 2).sum() for x, y in zip(xs, ys))
-        den = sum((y ** 2).sum() for y in ys)
-        return (num / den).sqrt().item()
 
     def n_outside(xs, ys):
         return sum(int((~torch.isclose(x, y, rtol=1e-4, atol=1e-5)).sum())
                    for x, y in zip(xs, ys))
 
     dist = {}
-    for run in ('kernel', 'plain', *faults):
-        for ref in ('plain', 'float64'):
+    for run in runs:
+        for ref in refs:
             if run != ref:
                 dist[f'{run}~{ref}'] = {
                     'D': rel_l2(runs[run][0], runs[ref][0]),
                     'G': rel_l2(runs[run][1], runs[ref][1]),
-                    'D_outside_tol': n_outside(runs[run][0], runs[ref][0])}
+                    'D_outside_tol': n_outside(runs[run][0], runs[ref][0]),
+                    'G_outside_tol': n_outside(runs[run][1], runs[ref][1])}
+    bound = REL_L2_BOUND[name]
 
     def within_bound(run):
-        return all(dist[f'{run}~{ref}'][net] <= bound
-                   for ref in ('plain', 'float64')
-                   for net, bound in REL_L2_BOUND.items())
+        return all(dist[f'{run}~{ref}'][net] <= b
+                   for ref in refs if ref != run
+                   for net, b in bound.items())
 
     (dk, gk, sk), (dp, gp, sp) = runs['kernel'], runs['plain']
-    torch.testing.assert_close(sk, sp, rtol=1e-4, atol=1e-5)
-    for x, y in zip(gk, gp):
-        torch.testing.assert_close(x, y, rtol=1e-4, atol=1e-5)
-    assert within_bound('kernel'), dist
-    for name in faults:
-        assert not within_bound(name), (name, dist)
-    return {'phase': 'parity', 'resolution': cfg_k.resolution(spec.phase),
-            'leaves': len(dk) + len(gk),
-            'D_elements': sum(x.numel() for x in dk),
-            'rel_l2_bound': REL_L2_BOUND, 'grad_rel_l2': dist,
-            'stats_kernel': sk.tolist(), 'stats_plain': sp.tolist()}
+    result = {'phase': 'parity', 'path': name,
+              'resolution': cfg_k.resolution(spec.phase),
+              'leaves': len(dk) + len(gk),
+              'D_elements': sum(x.numel() for x in dk),
+              'rel_l2_bound': bound, 'grad_rel_l2': dist,
+              'stats_kernel': sk.tolist(), 'stats_plain': sp.tolist()}
+    failed = [f'{run} outside the bound' for run in runs
+              if run not in faults and not within_bound(run)]
+    failed += [f'planted fault {f} inside the bound' for f in faults
+               if within_bound(f)]
+    if not torch.allclose(sk, sp, rtol=1e-4, atol=1e-5):
+        failed.append('stats differ')
+    if dist['kernel~plain']['G_outside_tol']:
+        failed.append("G's gradients differ elementwise")
+    if failed:
+        raise AssertionError(f'{failed}: {json.dumps(result)}')
+    return result
 
 
 def main():
@@ -373,9 +624,13 @@ def main():
         print('chip_smoke: no CUDA device; the port runs on an NVIDIA GPU',
               file=sys.stderr)
         return 2
+    from neuron_gan_tpu_torch.flagship import (
+        flagship_chunk_spec, flagship_config, flagship_packed_config)
     from neuron_gan_tpu_torch.runtime import kernels
     import neuron_gan_tpu_torch.ops.lrelu_pixel_norm as lpn
+    import neuron_gan_tpu_torch.ops.packed_conv_lrelu_pn as pcl
 
+    t_start = time.perf_counter()
     smi = nvidia_smi_line()
     emit({'phase': 'env', 'torch': torch.__version__,
           'cuda': torch.version.cuda, 'python': sys.version.split()[0],
@@ -389,34 +644,63 @@ def main():
                                     if 'registers' in ln or 'spill' in ln]}
                       for n, (s, log) in built.items()}})
 
-    err, checked, times, bounds, shape = check_kernels(torch, lpn, args.seed)
-    emit({'phase': 'kernels', 'checked': checked, 'max_abs_err': err,
-          'timed_shape': list(shape), **times})
+    epi = check_epilogue_kernels(torch, lpn, args.seed)
+    emit({'phase': 'kernels', 'pair': 'lrelu_pixel_norm', **epi})
+    conv = check_packed_kernels(torch, pcl, args.seed)
+    emit({'phase': 'kernels', 'pair': 'packed_conv_lrelu_pn', **conv})
 
-    result = train(torch, args.seed)
-    emit(result)
-    from neuron_gan_tpu_torch.flagship import flagship_chunk_spec, flagship_config
-    cfg = flagship_config()
+    paths = {'unpacked': flagship_config(), 'packed': flagship_packed_config()}
+    trained = {}
+    for name, cfg in paths.items():
+        trained[name] = train(torch, args.seed, cfg, name)
+        emit(trained[name])
     raw = torch.from_numpy(np.random.default_rng(args.seed + 1).random(
         (8, 768, 768, 1)).astype(np.float32)).to('cuda')
-    emit(parity(torch, args.seed, cfg, flagship_chunk_spec(cfg.n_phases - 1),
-                raw))
+    for name, cfg in paths.items():
+        emit(parity(torch, args.seed, cfg,
+                    flagship_chunk_spec(cfg.n_phases - 1), raw, name))
 
-    src = 'neuron_gan_tpu_torch/csrc/lrelu_pixel_norm.cu'
+    # launches on this slice's path (the packed one, which runs every
+    # kernel), each path's count beside it; a kernel of a path that never
+    # launched on it fails
+    def total(n):
+        return sum(n.values()) if isinstance(n, dict) else n
+
+    by_path = {key: {name: total(res['launches'][key])
+                     for name, res in trained.items()}
+               for key in ('k1', 'k2', 'k3', 'k4')}
+    for key in ('k1', 'k2', 'k3', 'k4'):
+        assert by_path[key]['packed'] > 0, (key, by_path)
+    for key in ('k1', 'k2'):
+        assert by_path[key]['unpacked'] > 0, (key, by_path)
+
+    def row(name, src, replaces, key, err, ms, plain_ms, bound_ms, bound_by,
+            library_ms):
+        return {'name': name, 'route': 'cuda',
+                'source': f'neuron_gan_tpu_torch/csrc/{src}.cu',
+                'replaces': f'neuron_gan_tpu/ops/{replaces}',
+                'launches': by_path[key]['packed'],
+                'launches_by_path': by_path[key], 'max_abs_err': err,
+                'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
+                'bound_by': bound_by, 'library_ms': library_ms}
+
+    e_err, c_err = epi['max_abs_err'], conv['max_abs_err']
     emit({'kernels': [
-        {'name': 'lrelu_pixel_norm_fwd', 'route': 'cuda', 'source': src,
-         'replaces': 'neuron_gan_tpu/ops/pallas_kernels.py:65',
-         'launches': result['launches']['fwd'], 'max_abs_err': err['fwd'],
-         'ms': times['fwd_ms'], 'plain_ms': times['fwd_plain_ms'],
-         'bound_ms': bounds['fwd'] * 1e3, 'bound_by': 'bytes',
-         'library_ms': None},
-        {'name': 'lrelu_pixel_norm_bwd', 'route': 'cuda', 'source': src,
-         'replaces': 'neuron_gan_tpu/ops/pallas_kernels.py:78',
-         'launches': result['launches']['bwd'], 'max_abs_err': err['bwd'],
-         'ms': times['bwd_ms'], 'plain_ms': times['bwd_plain_ms'],
-         'bound_ms': bounds['bwd'] * 1e3, 'bound_by': 'bytes',
-         'library_ms': None},
-    ]})
+        row('lrelu_pixel_norm_fwd', 'lrelu_pixel_norm', 'pallas_kernels.py:65',
+            'k1', e_err['fwd'], epi['fwd_ms'], epi['fwd_plain_ms'],
+            epi['bound_ms']['fwd'], 'bytes', None),
+        row('lrelu_pixel_norm_bwd', 'lrelu_pixel_norm', 'pallas_kernels.py:78',
+            'k2', e_err['bwd'], epi['bwd_ms'], epi['bwd_plain_ms'],
+            epi['bound_ms']['bwd'], 'bytes', None),
+        row('packed_conv_lrelu_pn_fwd', 'packed_conv_lrelu_pn',
+            'pallas_conv.py:90', 'k3', max(c_err['conv'], c_err['r']),
+            conv['conv_ms'], conv['conv_plain_ms'], conv['bound_ms']['conv'],
+            conv['bound_by']['conv'], conv['conv_library_ms']),
+        row('packed_conv_lrelu_pn_dz', 'packed_conv_lrelu_pn',
+            'pallas_conv.py:119', 'k4', c_err['dz'], conv['dz_ms'],
+            conv['dz_plain_ms'], conv['bound_ms']['dz'],
+            conv['bound_by']['dz'], None),
+    ], 'seconds': round(time.perf_counter() - t_start, 1)})
     print(smi, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),

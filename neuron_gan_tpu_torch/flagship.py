@@ -5,11 +5,22 @@ neuron_gan_tpu/flagship.py): 6 levels from 16^2 to 512^2, G features
 (128, 64, 32, 32, 16, 16), D features (16, 16, 32, 32, 64, 128), latent 64,
 batch 8, n_critic 1, lambda_gp 10, drift 1e-3, Adam beta1 0.5, lr 1e-4.
 
-Execution: unpacked layout, float32, TF32 off (precision 'highest'), the
-CUDA LeakyReLU + PixelNorm kernel pair in every G/D block, and the
-reference-exact augmentation.  The JAX package's shipping defaults (packed
-layout, 'mixed' precision, fast/shear augmentation) are later slices of the
-port (ROADMAP A5, A6, A11).
+Two executions of that geometry, both float32 with TF32 off (precision
+'highest') and the reference-exact augmentation:
+
+* ``flagship_config``: the unpacked layout, the CUDA LeakyReLU + PixelNorm
+  kernel pair in every G/D block;
+* ``flagship_packed_config``: the blocks at 64^2 and above in the 2x2
+  packed layout (``packed_min_res=64``; the 2x4 layout is not ported), the
+  kernel pair after each packed conv1 at 4 groups and in the unpacked
+  blocks, and the fused packed conv kernel pair on each packed conv2 --
+  every kernel the JAX package has.  The level boundaries are the
+  decomposed ones, which the JAX package's auto rule picks at 'highest'.
+
+The JAX package's other shipping defaults ('mixed' precision, the 2x4
+layout, the fast/shear augmentation) are later slices of the port
+(ROADMAP A5, A6, A11).  Neither configuration is a default anywhere until
+the card has measured it (ROADMAP B5).
 """
 
 from neuron_gan_tpu_torch.models import PGConfig
@@ -25,6 +36,10 @@ def flagship_config(**overrides):
     )
     kw.update(overrides)
     return PGConfig(**kw)
+
+
+def flagship_packed_config(**overrides):
+    return flagship_config(**{'packed_min_res': 64, **overrides})
 
 
 def flagship_chunk_spec(phase, fading=False, **overrides):

@@ -3,5 +3,5 @@ from neuron_gan_tpu_torch.models.pggan import (  # noqa: F401
     GeneratorPG,
     GrowthState,
     PGConfig,
-    precision_scope,
 )
+from neuron_gan_tpu_torch.runtime import precision_scope  # noqa: F401

@@ -1,13 +1,13 @@
 """Progressively-growing GAN (PGGAN) as PyTorch modules, NCHW.
 
-Counterpart of neuron_gan_tpu/models/pggan.py in its unpacked float32
-layout.  As there, the parameters of every phase exist from the start and
-the forward takes ``(phase, alpha)``: ``alpha=None`` is the steady state,
-a float the fade-in blend (reference models.py:344-351 for G, :516-524 for
-D).  Parameter names follow the JAX pytree paths (``stem.linear``,
-``blocks.{i}.conv1``, ``to_rgb.{i}``, ``head.conv_out``, ``from_rgb.{i}``;
-``weight``/``bias`` for the JAX ``w``/``b``), so ``convert.py`` maps one
-onto the other leaf by leaf.
+Counterpart of neuron_gan_tpu/models/pggan.py in float32, unpacked or in
+the 2x2 packed layout.  As there, the parameters of every phase exist from
+the start and the forward takes ``(phase, alpha)``: ``alpha=None`` is the
+steady state, a float the fade-in blend (reference models.py:344-351 for
+G, :516-524 for D).  Parameter names follow the JAX pytree paths
+(``stem.linear``, ``blocks.{i}.conv1``, ``to_rgb.{i}``, ``head.conv_out``,
+``from_rgb.{i}``; ``weight``/``bias`` for the JAX ``w``/``b``), so
+``convert.py`` maps one onto the other leaf by leaf.
 
 * stem       = eq-Linear(latent -> F0*init^2) + reshape to (F0, init, init)
                + LReLU + PixelNorm + eq-Conv3x3 + LReLU + PixelNorm
@@ -18,15 +18,23 @@ onto the other leaf by leaf.
 * D head     = eq-Conv3x3 (bias) + LReLU + PixelNorm + eq-Conv(init x init,
                bias, VALID) -> (B, 1) critic score
 
-With ``use_kernels`` every LReLU + PixelNorm of the G and D blocks runs in
-the fused CUDA kernel pair (ops/lrelu_pixel_norm.py), as ``use_pallas``
-routes them through the Pallas kernel in the JAX package; the stem and the
-head keep the composed ops, as there.
+With ``use_kernels`` every LReLU + PixelNorm of the unpacked G and D blocks
+runs in the fused CUDA kernel pair (ops/lrelu_pixel_norm.py), as
+``use_pallas`` routes them through the Pallas kernel in the JAX package;
+the stem and the head keep the composed ops, as there.
+
+With ``packed_min_res`` the blocks whose convs run at that resolution or
+above run in the 2x2 space-to-depth layout (ops/packed.py; the JAX
+package's ``_gen_block_any`` / ``_dis_block_any`` with their decomposed
+level boundaries).  There ``use_kernels`` also puts the LReLU + 4-group
+PixelNorm after each conv1 in the same kernel pair, and runs each conv2
+with its epilogue in the fused packed conv kernel pair
+(ops/packed_conv_lrelu_pn.py) -- what ``pallas_epilogue`` and
+``pallas_conv`` do in the JAX package.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 from typing import Optional
@@ -38,8 +46,11 @@ from neuron_gan_tpu_torch.ops import (
     avg_pool, conv2d, equalized_conv2d, equalized_linear, fade_in,
     init_conv2d, init_linear, leaky_relu, pixel_norm, upsample2_bilinear,
 )
+from neuron_gan_tpu_torch.ops import packed as pk
 from neuron_gan_tpu_torch.ops.lrelu_pixel_norm import (
     lrelu_pixel_norm as fused_lrelu_pixel_norm)
+from neuron_gan_tpu_torch.ops.packed_conv_lrelu_pn import (
+    packed_conv3x3_lrelu_pn)
 from neuron_gan_tpu_torch.runtime import resolve_device
 
 
@@ -57,12 +68,20 @@ class PGConfig:
     # 'highest' runs convs and matmuls in true float32 (TF32 off);
     # None allows TF32 -- see precision_scope
     precision: Optional[str] = 'highest'
-    # LReLU + PixelNorm of the G/D blocks in the CUDA kernel pair (the
-    # counterpart of the JAX package's use_pallas)
+    # every block's LReLU + PixelNorm in the CUDA kernel pairs: unpacked
+    # blocks, and conv1 of packed ones, in the LReLU + PixelNorm pair (the
+    # JAX package's use_pallas / pallas_epilogue); conv2 of packed blocks
+    # fused with its conv (pallas_conv).  The JAX pallas_conv gate also
+    # needs precision=None, because its MXU dot runs at default (bf16
+    # pass) precision; the fused conv kernel accumulates in true float32,
+    # so here it runs at 'highest' too.
     use_kernels: bool = False
-    # the space-to-depth packed layout is ROADMAP A11
+    # blocks whose convs run at this resolution or above run in the 2x2
+    # space-to-depth packed layout (ops/packed.py); None disables.  Only
+    # the decomposed level boundaries are ported: precision=None, where
+    # the JAX package fuses them, raises (ROADMAP A11), as does its 2x4
+    # layout, which has no field here.
     packed_min_res: Optional[int] = None
-    packed_lanes: Optional[int] = None
 
     def __post_init__(self):
         object.__setattr__(self, 'n_gen_features', tuple(self.n_gen_features))
@@ -73,12 +92,18 @@ class PGConfig:
             raise NotImplementedError(
                 f"compute_dtype={self.compute_dtype!r} is not ported yet "
                 "(ROADMAP A5); use 'float32'")
-        if self.packed_min_res is not None or self.packed_lanes is not None:
-            raise NotImplementedError(
-                'the packed layout is not ported yet (ROADMAP A11)')
         if self.precision not in ('highest', None):
             raise ValueError(f"precision must be 'highest' or None, got "
                              f'{self.precision!r}')
+        if self.packed_min_res is None:
+            return
+        if self.packed_min_res <= self.image_size_init:
+            raise ValueError('packed_min_res must exceed the stem/head '
+                             'resolution (image_size_init)')
+        if self.precision is None:
+            raise NotImplementedError(
+                'packed_min_res with precision=None: the fused packed level '
+                'boundaries are not ported yet (ROADMAP A11)')
 
     @property
     def n_layers_max(self) -> int:
@@ -100,24 +125,6 @@ class PGConfig:
         if self.resolution(p) != res:
             raise ValueError(f'{res} is not a phase resolution')
         return p
-
-
-@contextlib.contextmanager
-def precision_scope(precision):
-    """Run a block with TF32 off (``'highest'``) or allowed (``None``) for
-    cuDNN convolutions and cuBLAS matmuls, restoring both flags after.
-    cuDNN's float32 convs default to TF32, which would break parity with
-    the JAX package's 'highest' precision."""
-    allow = precision is None
-    old = (torch.backends.cudnn.allow_tf32,
-           torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = allow
-    torch.backends.cuda.matmul.allow_tf32 = allow
-    try:
-        yield
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = old
 
 
 # --------------------------------------------------------------------------
@@ -169,11 +176,40 @@ def _block_pair(f_in, f_out, cfg, rng, device):
 
 
 def _epilogue(x, cfg: PGConfig):
-    """The LReLU -> PixelNorm after every block conv: the CUDA kernel pair
-    when cfg.use_kernels, the composed ops otherwise."""
+    """The LReLU -> PixelNorm after every unpacked block conv: the CUDA
+    kernel pair when cfg.use_kernels, the composed ops otherwise."""
     if cfg.use_kernels:
         return fused_lrelu_pixel_norm(x, 1, cfg.neg_slope, 1e-8)
     return pixel_norm(leaky_relu(x, cfg.neg_slope))
+
+
+def _want_packed(cfg: PGConfig, res: int) -> bool:
+    return cfg.packed_min_res is not None and res >= cfg.packed_min_res
+
+
+def _packed_epilogue(x, cfg: PGConfig):
+    """LReLU -> 4-group PixelNorm in the packed domain: the CUDA kernel
+    pair at n_groups=4 when cfg.use_kernels, the composed ops otherwise."""
+    if cfg.use_kernels:
+        return fused_lrelu_pixel_norm(x, 4, cfg.neg_slope, 1e-8)
+    return pk.packed_pixel_norm(leaky_relu(x, cfg.neg_slope))
+
+
+def _packed_conv_epilogue(x, conv: Conv, cfg: PGConfig):
+    """Packed stride-1 conv3x3 -> LReLU -> 4-group PixelNorm: one fused
+    kernel Function when cfg.use_kernels, the composed packed conv and
+    epilogue otherwise."""
+    if cfg.use_kernels:
+        if conv.bias is not None:
+            raise NotImplementedError('the fused packed conv kernel takes '
+                                      'no bias (block convs have none)')
+        w = conv.weight
+        scale = pk._eq_scale3x3(w, cfg.neg_slope)
+        w_packed = pk.pack_conv3x3_weight(w, scale)
+        return packed_conv3x3_lrelu_pn(x, w_packed, cfg.neg_slope, 1e-8)
+    return _packed_epilogue(
+        pk.packed_equalized_conv3x3(x, conv.weight, conv.bias,
+                                    neg_slope=cfg.neg_slope), cfg)
 
 
 # --------------------------------------------------------------------------
@@ -212,29 +248,43 @@ class GeneratorPG(nn.Module):
         x = pixel_norm(leaky_relu(x, cfg.neg_slope))
         return pixel_norm(leaky_relu(self.stem['conv'](x), cfg.neg_slope))
 
-    def _block(self, x, i):
-        p = self.blocks[i]
-        x = upsample2_bilinear(x)
-        x = _epilogue(p['conv1'](x), self.cfg)
-        return _epilogue(p['conv2'](x), self.cfg)
+    def _block(self, x, packed_in: bool, i: int):
+        """Block i (upsample, then two convs at resolution(i+1)); returns
+        (x, packed_out), packed iff that resolution is >= packed_min_res."""
+        p, cfg = self.blocks[i], self.cfg
+        if not _want_packed(cfg, cfg.resolution(i + 1)):
+            x = upsample2_bilinear(x)
+            x = _epilogue(p['conv1'](x), cfg)
+            return _epilogue(p['conv2'](x), cfg), False
+        if packed_in:
+            x = pk.packed_upsample2_bilinear(x)
+        else:
+            x = pk.space_to_depth(upsample2_bilinear(x))
+        x = pk.packed_equalized_conv3x3(x, p['conv1'].weight, p['conv1'].bias,
+                                        neg_slope=cfg.neg_slope)
+        x = _packed_epilogue(x, cfg)
+        return _packed_conv_epilogue(x, p['conv2'], cfg), True
 
-    def _to_rgb(self, x, i):
-        return torch.tanh(self.to_rgb[i](x))
+    def _to_rgb(self, x, packed: bool, i: int):
+        if not packed:
+            return torch.tanh(self.to_rgb[i](x))
+        y = pk.packed_conv1x1(x, self.to_rgb[i].weight, self.to_rgb[i].bias)
+        return pk.depth_to_space(torch.tanh(y))
 
     def forward(self, z, phase: int, alpha=None):
         """z (B, latent) -> image (B, C, R, R), R = init * 2**phase."""
-        x = self._stem(z)
+        x, packed = self._stem(z), False
         if alpha is None:
             for i in range(phase):
-                x = self._block(x, i)
-            return self._to_rgb(x, phase)
+                x, packed = self._block(x, packed, i)
+            return self._to_rgb(x, packed, phase)
         if phase < 1:
             raise ValueError('fade-in requires phase >= 1')
         for i in range(phase - 1):
-            x = self._block(x, i)
-        im_start = upsample2_bilinear(self._to_rgb(x, phase - 1))
-        im_end = self._to_rgb(self._block(x, phase - 1), phase)
-        return fade_in(im_start, im_end, alpha)
+            x, packed = self._block(x, packed, i)
+        im_start = upsample2_bilinear(self._to_rgb(x, packed, phase - 1))
+        x2, packed2 = self._block(x, packed, phase - 1)
+        return fade_in(im_start, self._to_rgb(x2, packed2, phase), alpha)
 
 
 class DiscriminatorPG(nn.Module):
@@ -260,11 +310,29 @@ class DiscriminatorPG(nn.Module):
                  padding=0, neg_slope=s, rng=rng, device=device)
             for i in range(len(f)))
 
-    def _block(self, y, i):
-        p = self.blocks[i]
-        y = avg_pool(y, 2)
-        y = _epilogue(p['conv1'](y), self.cfg)
-        return _epilogue(p['conv2'](y), self.cfg)
+    def _from_rgb(self, x, res: int, i: int):
+        """from_rgb[i] of an image at resolution ``res``; returns
+        (y, packed)."""
+        conv = self.from_rgb[i]
+        if not _want_packed(self.cfg, res):
+            return conv(x), False
+        return pk.packed_conv1x1(pk.space_to_depth(x), conv.weight,
+                                 conv.bias), True
+
+    def _block(self, y, packed_in: bool, i: int, entry_res: int):
+        """Block i: pool to entry_res/2, then two convs there; returns
+        (y, packed_out), packed iff entry_res/2 >= packed_min_res."""
+        p, cfg = self.blocks[i], self.cfg
+        packed_out = _want_packed(cfg, entry_res // 2)
+        y = pk.packed_avg_pool2(y) if packed_in else avg_pool(y, 2)
+        if not packed_out:
+            y = _epilogue(p['conv1'](y), cfg)
+            return _epilogue(p['conv2'](y), cfg), False
+        y = pk.packed_equalized_conv3x3(pk.space_to_depth(y),
+                                        p['conv1'].weight, p['conv1'].bias,
+                                        neg_slope=cfg.neg_slope)
+        y = _packed_epilogue(y, cfg)
+        return _packed_conv_epilogue(y, p['conv2'], cfg), True
 
     def _head(self, y):
         s = self.cfg.neg_slope
@@ -275,18 +343,22 @@ class DiscriminatorPG(nn.Module):
     def forward(self, x, phase: int, alpha=None):
         """x (B, C, R, R) -> critic score (B, 1)."""
         L = self.cfg.n_layers_max
+        res = self.cfg.resolution(phase)
         if alpha is None:
-            y = self.from_rgb[L - 1 - phase](x)
-            for i in range(L - 1 - phase, L - 1):
-                y = self._block(y, i)
-            return self._head(y)
-        if phase < 1:
-            raise ValueError('fade-in requires phase >= 1')
-        y_start = self.from_rgb[L - phase](avg_pool(x, 2))
-        y_end = self._block(self.from_rgb[L - 1 - phase](x), L - 1 - phase)
-        y = fade_in(y_start, y_end, alpha)
-        for i in range(L - phase, L - 1):
-            y = self._block(y, i)
+            y, packed = self._from_rgb(x, res, L - 1 - phase)
+            first = L - 1 - phase
+        else:
+            if phase < 1:
+                raise ValueError('fade-in requires phase >= 1')
+            y_start, _ = self._from_rgb(avg_pool(x, 2), res // 2, L - phase)
+            y, packed = self._from_rgb(x, res, L - 1 - phase)
+            y, packed = self._block(y, packed, L - 1 - phase, res)
+            y = fade_in(y_start, y, alpha)
+            res //= 2
+            first = L - phase
+        for i in range(first, L - 1):
+            y, packed = self._block(y, packed, i, res)
+            res //= 2
         return self._head(y)
 
 

@@ -25,18 +25,19 @@ Gradients mirror the JAX package's two custom VJPs:
 The same two Functions run on both devices; only the innermost launch
 differs.  A CPU tensor takes the plain version; a CUDA tensor launches the
 kernel, or raises if the kernel cannot take it -- never a silent fall back.
-``fwd_launches`` and ``bwd_launches`` count kernel launches, and nothing
-else.
+``fwd_launches`` and ``bwd_launches`` count kernel launches by
+``n_groups``, and nothing else.
 """
 
+import collections
 import ctypes
 
 import torch
 
 from neuron_gan_tpu_torch.runtime import kernels
 
-fwd_launches = 0
-bwd_launches = 0
+fwd_launches = collections.Counter()
+bwd_launches = collections.Counter()
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -125,7 +126,6 @@ def _raise_on(rc, what):
 
 
 def _fwd(x, n_groups, neg_slope, eps):
-    global fwd_launches
     if x.device.type == 'cpu':
         return lrelu_pixel_norm_plain(x, n_groups, neg_slope, eps)
     _check_device(x)
@@ -137,12 +137,11 @@ def _fwd(x, n_groups, neg_slope, eps):
             x.data_ptr(), out.data_ptr(), *shape, neg_slope, eps,
             _DTYPE_CODES[x.dtype], stream)
     _raise_on(rc, 'lrelu_pixel_norm forward')
-    fwd_launches += 1
+    fwd_launches[n_groups] += 1
     return out
 
 
 def _bwd(x, g, n_groups, neg_slope, eps):
-    global bwd_launches
     if x.device.type == 'cpu':
         return lrelu_pixel_norm_bwd_plain(x, g, n_groups, neg_slope, eps)
     _check_device(x)
@@ -154,7 +153,7 @@ def _bwd(x, g, n_groups, neg_slope, eps):
             x.data_ptr(), g.data_ptr(), dx.data_ptr(), *shape, neg_slope,
             eps, _DTYPE_CODES[x.dtype], stream)
     _raise_on(rc, 'lrelu_pixel_norm backward')
-    bwd_launches += 1
+    bwd_launches[n_groups] += 1
     return dx
 
 

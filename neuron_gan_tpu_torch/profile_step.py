@@ -2,13 +2,17 @@
 
     python3 -m neuron_gan_tpu_torch.profile_step
 
-Runs the flagship trainer (``flagship.py``, kernels on) at steady 512^2
-from random weights (seed 0) and a synthetic (16, 768, 768, 1) stack, and
-after one warm-up epoch traces two epochs of 2 steps each with
-torch.profiler.  Prints one JSON line: device time per step, the device's
-idle share of the traced wall time, device time by kind (convolution, the
-LeakyReLU+PixelNorm kernels, the rest), the top kernels by device time and
-the card's nvidia-smi name and power limit.
+Runs the flagship trainer (``flagship.py``) at steady 512^2 from random
+weights (seed 0) and a synthetic (16, 768, 768, 1) stack, once for each of
+its two configurations (unpacked, then the 2x2 packed layout; kernels on in
+both).  After one warm-up epoch it traces two epochs of 2 steps each with
+torch.profiler, then two more with input shapes recorded.  Prints one JSON
+line per configuration: from the first window, device time per step, the
+device's idle share of the wall time, device time by kind (cuDNN/ATen
+convolution, the LeakyReLU+PixelNorm kernels, the fused packed conv
+kernels, the rest) and the top kernels by device time; from the second,
+the top ATen ops by the device time of the kernels they launch, with their
+input shapes; and the card's nvidia-smi name and power limit.
 
 Needs a CUDA card; exits 2 without one.
 """
@@ -21,7 +25,8 @@ import time
 import numpy as np
 import torch
 
-from neuron_gan_tpu_torch.flagship import flagship_chunk_spec, flagship_config
+from neuron_gan_tpu_torch.flagship import (
+    flagship_chunk_spec, flagship_config, flagship_packed_config)
 from neuron_gan_tpu_torch.models import DiscriminatorPG, GeneratorPG
 from neuron_gan_tpu_torch.train_step import init_train_state, make_epoch_runner
 
@@ -30,6 +35,8 @@ SEED = 0
 
 def _kind(name):
     low = name.lower()
+    if 'packed_conv_fwd' in low or 'packed_dz' in low:
+        return 'packed_conv_lrelu_pn'
     if 'lrelu_pn' in low:
         return 'lrelu_pixel_norm'
     if any(k in low for k in ('conv', 'cudnn', 'xmma', 'implicit', 'winograd',
@@ -45,14 +52,19 @@ def _device_us(evt):
     return 0.0
 
 
-def main():
-    if not torch.cuda.is_available():
-        print('profile_step: no CUDA device', file=sys.stderr)
-        return 2
+def _trace(run_epochs, record_shapes):
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts,
+                                record_shapes=record_shapes) as prof:
+        t0 = time.perf_counter()
+        run_epochs()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    return prof, wall_us
 
-    images = torch.from_numpy(np.random.default_rng(SEED).random(
-        (16, 768, 768, 1)).astype(np.float32)).to('cuda')
-    cfg = flagship_config()
+
+def profile(name, cfg, images, smi):
     init = torch.Generator().manual_seed(SEED)
     state = init_train_state(GeneratorPG(cfg, init, device='cuda'),
                              DiscriminatorPG(cfg, init, device='cuda'))
@@ -62,15 +74,12 @@ def main():
     one_epoch(state, images, rng, 1)                # warm-up epoch
     torch.cuda.synchronize()
 
+    def epochs(first):
+        return lambda: [one_epoch(state, images, rng, e)
+                        for e in (first, first + 1)]
+
     steps = 2 * spec.n_images // spec.batch_size
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        one_epoch(state, images, rng, 2)
-        one_epoch(state, images, rng, 3)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    prof, wall_us = _trace(epochs(2), record_shapes=False)
     by_kind, top = {}, []
     for evt in prof.key_averages():
         us = _device_us(evt)
@@ -80,11 +89,17 @@ def main():
         top.append((us, evt.key, evt.count))
     busy_us = sum(by_kind.values())
     top.sort(reverse=True)
-    smi = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    print(json.dumps({
-        'phase': 'profile', 'nvidia_smi': smi,
+    # a second window with input shapes recorded (which costs host time,
+    # so the first window alone gives wall time and idle share): each
+    # kernel's time on the op that launched it (self time, no double count
+    # through the op's parents), by op and input shapes
+    prof, _ = _trace(epochs(4), record_shapes=True)
+    ops = sorted(((_device_us(e), e.key, str(e.input_shapes), e.count)
+                  for e in prof.key_averages(group_by_input_shape=True)
+                  if e.device_type == torch.autograd.DeviceType.CPU
+                  and _device_us(e) > 0), reverse=True)
+    return {
+        'phase': 'profile', 'config': name, 'nvidia_smi': smi,
         'resolution': cfg.resolution(spec.phase), 'steps': steps,
         'wall_ms_per_step': wall_us / steps / 1e3,
         'device_ms_per_step': busy_us / steps / 1e3 if busy_us else None,
@@ -94,7 +109,25 @@ def main():
         'top_kernels': [{'name': n[:120], 'ms_per_step': us / steps / 1e3,
                          'calls_per_step': c / steps}
                         for us, n, c in top[:15]],
-    }), flush=True)
+        'top_ops': [{'op': n, 'input_shapes': shapes[:200],
+                     'ms_per_step': us / steps / 1e3,
+                     'calls_per_step': c / steps}
+                    for us, n, shapes, c in ops[:15]],
+    }
+
+
+def main():
+    if not torch.cuda.is_available():
+        print('profile_step: no CUDA device', file=sys.stderr)
+        return 2
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    images = torch.from_numpy(np.random.default_rng(SEED).random(
+        (16, 768, 768, 1)).astype(np.float32)).to('cuda')
+    for name, cfg in (('unpacked', flagship_config()),
+                      ('packed', flagship_packed_config())):
+        print(json.dumps(profile(name, cfg, images, smi)), flush=True)
     return 0
 
 

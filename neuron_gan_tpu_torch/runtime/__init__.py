@@ -1,1 +1,2 @@
-from neuron_gan_tpu_torch.runtime.device import resolve_device  # noqa: F401
+from neuron_gan_tpu_torch.runtime.device import (  # noqa: F401
+    precision_scope, resolve_device)

@@ -1,4 +1,7 @@
-"""Device resolution shared by every entry point of the port."""
+"""Device resolution and float32 precision, shared by every entry point of
+the port."""
+
+import contextlib
 
 import torch
 
@@ -13,3 +16,21 @@ def resolve_device(device=None) -> torch.device:
                 'on the CPU')
         return torch.device('cuda')
     return torch.device(device)
+
+
+@contextlib.contextmanager
+def precision_scope(precision):
+    """Run a block with TF32 off (``'highest'``) or allowed (``None``) for
+    cuDNN convolutions and cuBLAS matmuls, restoring both flags after.
+    cuDNN's float32 convs default to TF32, which would break parity with
+    the JAX package's 'highest' precision."""
+    allow = precision is None
+    old = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = allow
+    torch.backends.cuda.matmul.allow_tf32 = allow
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = old

@@ -181,11 +181,114 @@ def test_init_stds_match_jax(params):
 
 @pytest.mark.parametrize('field,value', [('compute_dtype', 'mixed'),
                                          ('compute_dtype', 'bfloat16'),
-                                         ('packed_min_res', 8),
-                                         ('packed_lanes', 128)])
+                                         ('precision', None)])
 def test_unported_config_fields_raise(field, value):
+    # on a packed config: precision=None is where the JAX package fuses the
+    # packed level boundaries, which are not ported
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        PGConfig(**ARCH, **{field: value})
+        PGConfig(**ARCH, packed_min_res=8, **{field: value})
+
+
+def test_packed_config_checks():
+    # packed_min_res must exceed the stem/head resolution, as in JAX
+    with pytest.raises(ValueError, match='packed_min_res'):
+        PGConfig(**ARCH, packed_min_res=4)
+    with pytest.raises(NotImplementedError, match='ROADMAP A11'):
+        PGConfig(**ARCH, packed_min_res=8, precision=None)
+    PGConfig(**ARCH, packed_min_res=8)
+    PGConfig(**ARCH, precision=None)        # unpacked: no boundaries to fuse
+
+
+
+# ---------------------------------------------------------------------------
+# the 2x2 packed layout: blocks at 32^2 and above packed, so every branch
+# of the level boundaries runs (G: unpacked -> packed at block 0, packed
+# -> packed at block 1; D at phase 2: packed -> packed at block 0, packed
+# -> unpacked at block 1).  JAX runs its packed kernels interpreted at
+# precision=None (its pallas_conv gate needs it; XLA:CPU computes float32
+# convs in float32 at either precision), fused boundaries off.
+# ---------------------------------------------------------------------------
+
+PACKED_ARCH = dict(n_gen_features=(16, 8, 8), n_dis_features=(8, 8, 16),
+                   latent_dim=8, image_size_init=16, packed_min_res=32)
+JCFG_P = JPGConfig(**PACKED_ARCH, precision=None, use_pallas=True,
+                   pallas_epilogue=True, pallas_conv=True,
+                   fuse_up2_conv=False, fuse_pool_conv=False)
+TCFG_P = PGConfig(**PACKED_ARCH, use_kernels=True)
+
+
+@pytest.fixture(scope='module')
+def packed_params():
+    kg, kd = jax.random.split(jax.random.PRNGKey(1))
+    return (jax.tree.map(np.asarray, init_generator_pg(kg, JCFG_P)),
+            jax.tree.map(np.asarray, init_discriminator_pg(kd, JCFG_P)))
+
+
+@pytest.mark.parametrize('phase,alpha', CASES)
+def test_packed_generator_forward_and_param_grads(packed_params, phase, alpha):
+    rng = np.random.default_rng(20 + phase)
+    z = rng.standard_normal((2, 8)).astype(np.float32)
+    res = JCFG_P.resolution(phase)
+    cot = rng.standard_normal((2, res, res, 1)).astype(np.float32)
+
+    def loss(p):
+        y = generator_pg(p, jnp.asarray(z), JCFG_P, phase, alpha)
+        return jnp.sum(y * cot), y
+
+    (_, jy), jg = jax.jit(jax.value_and_grad(loss, has_aux=True))(packed_params[0])
+    g, _ = port_models(packed_params, TCFG_P)
+    ty = g(torch.from_numpy(z), phase, alpha)
+    (ty * torch.from_numpy(cot.transpose(0, 3, 1, 2).copy())).sum().backward()
+    np.testing.assert_allclose(ty.detach().numpy().transpose(0, 2, 3, 1),
+                               np.asarray(jy), **TOL)
+    assert_tree_close(grads_tree(g), jg, **TOL, scaled=True)
+
+
+@pytest.mark.parametrize('phase,alpha', CASES)
+def test_packed_discriminator_forward_and_param_grads(packed_params, phase, alpha):
+    rng = np.random.default_rng(30 + phase)
+    res = JCFG_P.resolution(phase)
+    x = rng.standard_normal((2, res, res, 1)).astype(np.float32)
+    cot = rng.standard_normal((2, 1)).astype(np.float32)
+
+    def loss(p):
+        y = discriminator_pg(p, jnp.asarray(x), JCFG_P, phase, alpha)
+        return jnp.sum(y * cot), y
+
+    (_, jy), jg = jax.jit(jax.value_and_grad(loss, has_aux=True))(packed_params[1])
+    _, d = port_models(packed_params, TCFG_P)
+    ty = d(torch.from_numpy(x.transpose(0, 3, 1, 2).copy()), phase, alpha)
+    (ty * torch.from_numpy(cot)).sum().backward()
+    np.testing.assert_allclose(ty.detach().numpy(), np.asarray(jy), **TOL)
+    assert_tree_close(grads_tree(d), jg, **TOL, scaled=True)
+
+
+@pytest.mark.parametrize('knobs', [
+    dict(use_kernels=False),
+    dict(packed_min_res=None)])
+def test_packed_kernel_path_matches_plain_paths(packed_params, knobs):
+    # the packed kernel path against the plain packed path (what it is
+    # held against on the card) and against the unpacked path (packing is
+    # exact up to reordered sums)
+    g1, d1 = port_models(packed_params, TCFG_P)
+    g0, d0 = port_models(packed_params, dataclasses.replace(TCFG_P, **knobs))
+    z = torch.from_numpy(np.random.default_rng(4).standard_normal((2, 8)).astype(np.float32))
+    torch.testing.assert_close(g1(z, 2, 0.6), g0(z, 2, 0.6), rtol=1e-5, atol=1e-5)
+    x = g0(z, 2).detach()
+    torch.testing.assert_close(d1(x, 2), d0(x, 2), rtol=1e-5, atol=1e-5)
+
+
+def test_packed_kernel_path_refuses_a_biased_conv(packed_params):
+    # the fused packed conv kernel takes no bias: a biased conv2 raises on
+    # the kernel path instead of leaving it for the plain ops
+    g, _ = port_models(packed_params, TCFG_P)
+    conv = g.blocks[1]['conv2']
+    conv.bias = torch.nn.Parameter(torch.zeros(conv.weight.shape[0]))
+    z = torch.zeros(2, 8)
+    with pytest.raises(NotImplementedError, match='bias'):
+        g(z, 2)
+    g.cfg = dataclasses.replace(TCFG_P, use_kernels=False)
+    assert torch.isfinite(g(z, 2)).all()
 
 
 def test_growth_state_replays_jax():

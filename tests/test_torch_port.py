@@ -66,6 +66,14 @@ def test_default_device_is_cuda_or_an_error(monkeypatch):
     assert resolve_device() == torch.device('cuda')
 
 
+def load_chip_smoke():
+    spec = importlib.util.spec_from_file_location('chip_smoke',
+                                                  ROOT / 'chip_smoke.py')
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
 def test_chip_smoke_refuses_without_cuda():
     env = dict(os.environ, CUDA_VISIBLE_DEVICES='')
     out = subprocess.run([sys.executable, str(ROOT / 'chip_smoke.py')],
@@ -92,10 +100,7 @@ def test_chip_smoke_parity_small_on_cpu():
     import numpy as np
     import torch
     from neuron_gan_tpu_torch.flagship import flagship_chunk_spec, flagship_config
-    spec = importlib.util.spec_from_file_location('chip_smoke',
-                                                  ROOT / 'chip_smoke.py')
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = load_chip_smoke()
     cfg = flagship_config(n_gen_features=(16, 8, 8),
                           n_dis_features=(8, 8, 16), latent_dim=8,
                           image_size_init=4)
@@ -114,8 +119,35 @@ def test_chip_smoke_parity_small_on_cpu():
         assert dists[f'{fault}~float64']['D'] > out['rel_l2_bound']['D'], dists
 
 
+def test_chip_smoke_parity_small_packed_on_cpu():
+    # the packed path's parity at a small size: kernel path, plain packed
+    # path, float64 and the plain unpacked path agree to rounding; both
+    # planted faults (the r cotangent dropped; the dz kernel's second
+    # order zeroed) lie outside the bound
+    import numpy as np
+    import torch
+    from neuron_gan_tpu_torch.flagship import flagship_chunk_spec, flagship_packed_config
+    smoke = load_chip_smoke()
+    cfg = flagship_packed_config(n_gen_features=(16, 8, 8),
+                                 n_dis_features=(8, 8, 16), latent_dim=8,
+                                 image_size_init=8, packed_min_res=16)
+    chunk = flagship_chunk_spec(2, crop_size=32, latent_dim=8, batch_size=2,
+                                n_images=2)
+    raw = torch.from_numpy(np.random.default_rng(2).random(
+        (2, 48, 48, 1)).astype(np.float32))
+    out = smoke.parity(torch, 0, cfg, chunk, raw, 'packed')
+    assert out['resolution'] == 32
+    dists = out['grad_rel_l2']
+    for name in ('kernel~plain', 'kernel~float64', 'plain~float64',
+                 'kernel~unpacked', 'plain~unpacked', 'float64~unpacked'):
+        dist = dists[name]
+        assert dist['D'] < 1e-5 and dist['G'] < 1e-5, (name, dist)
+    for fault in ('ct_r_dropped', 'dz_no_second_order'):
+        assert dists[f'{fault}~float64']['D'] > out['rel_l2_bound']['D'], dists
+
+
 def test_kernel_sources_and_library_names():
-    assert kernels.kernel_names() == ['lrelu_pixel_norm']
+    assert kernels.kernel_names() == ['lrelu_pixel_norm', 'packed_conv_lrelu_pn']
     path = kernels.library_path('lrelu_pixel_norm')
     # content-addressed: the name changes with the source or the flags
     assert path.parent == kernels.BUILD_DIR
@@ -127,8 +159,8 @@ def test_kernel_sources_and_library_names():
 
 def test_build_skips_existing_library(tmp_path, monkeypatch):
     monkeypatch.setattr(kernels, 'BUILD_DIR', tmp_path)
-    lib = kernels.library_path('lrelu_pixel_norm')
-    lib.write_bytes(b'')
+    for name in kernels.kernel_names():
+        kernels.library_path(name).write_bytes(b'')
     # nothing to compile, so no compiler is looked for or run
     monkeypatch.setattr(kernels, '_nvcc', lambda: pytest.fail('nvcc called'))
     assert kernels.build() == {}

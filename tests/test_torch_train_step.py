@@ -15,6 +15,8 @@ tests/test_packed.py:245), and 99% of them within 1e-6; the per-epoch
 scalars rtol 1e-6 (float32 arithmetic on both sides).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -72,7 +74,7 @@ def jax_augment_draws(key, batch, frame, translation, degrees=180.0):
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
 
 
-def jax_batch_draws(k_batch, spec, batch):
+def jax_batch_draws(k_batch, spec, batch, frame=FRAME):
     """The draws JAX's batch_body takes from ``k_batch``, as the port's
     draw_batch returns them."""
     t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
@@ -86,7 +88,7 @@ def jax_batch_draws(k_batch, spec, batch):
         critic.append((t(z1), t(z2), t(eps)))
     zg = j_sample_latent(jax.random.fold_in(k_batch, 101), (batch, spec['latent_dim']))
     return {'augment': jax_augment_draws(jax.random.fold_in(k_batch, 0), batch,
-                                         FRAME, spec['translation']),
+                                         frame, spec['translation']),
             'critic': critic, 'zg': t(zg)}
 
 
@@ -138,12 +140,12 @@ def assert_params_close(got, want, lr):
     assert close >= 0.99 * total, (close, total)
 
 
-def run_jax_step(params, spec, raw, k_batch, alpha, lr, lam):
+def run_jax_step(params, spec, raw, k_batch, alpha, lr, lam, jcfg=JCFG):
     jspec = jts.ChunkSpec(**spec)
     state = jts.init_train_state(params[0], params[1],
                                  jts.make_optimizer(spec['beta1'], spec['rmsprop']),
                                  spec.get('ema_beta', 0.0))
-    body = jax.jit(jts.make_batch_step(JCFG, jspec))
+    body = jax.jit(jts.make_batch_step(jcfg, jspec))
     new_state, stats = body(state, (jnp.asarray(raw), k_batch),
                             jnp.float32(alpha), jnp.float32(lr), jnp.float32(lam))
     return jax.tree.map(np.asarray, new_state), np.asarray(stats)
@@ -153,15 +155,15 @@ def run_jax_step(params, spec, raw, k_batch, alpha, lr, lam):
 # one batch step
 # ---------------------------------------------------------------------------
 
-def test_batch_step_matches_jax(params):
-    spec = dict(SPEC)
-    raw = np.random.default_rng(0).random((2, FRAME, FRAME, 1)).astype(np.float32)
+def check_batch_step(params, jcfg, tcfg, spec, frame):
+    """One batch step of the port against the JAX package's, same draws."""
+    raw = np.random.default_rng(0).random((2, frame, frame, 1)).astype(np.float32)
     k_batch = jax.random.PRNGKey(3)
     alpha, lr, lam = 0.5, LR, 0.0
-    draws = jax_batch_draws(k_batch, spec, 2)
+    draws = jax_batch_draws(k_batch, spec, 2, frame)
 
-    state = port_state(params, spec)
-    step = tts.make_batch_step(TCFG, tts.ChunkSpec(**spec))
+    state = port_state(params, spec, tcfg)
+    step = tts.make_batch_step(tcfg, tts.ChunkSpec(**spec))
     stats = step(state, torch.from_numpy(raw), draws, alpha, lr, lam).numpy()
     port_d_grads, port_g_grads = grads_of(state.d), grads_of(state.g)
     port_d_after = to_jax_tree(state.d)
@@ -170,11 +172,12 @@ def test_batch_step_matches_jax(params):
     # port's updated critic (the step's G update sees the new D)
     g0, d0 = params
     phase = spec['phase']
-    g_apply = lambda p, z: generator_pg(p, z, JCFG, phase, alpha)  # noqa: E731
-    d_apply = lambda p, x: discriminator_pg(p, x, JCFG, phase, alpha)  # noqa: E731
+    g_apply = lambda p, z: generator_pg(p, z, jcfg, phase, alpha)  # noqa: E731
+    d_apply = lambda p, x: discriminator_pg(p, x, jcfg, phase, alpha)  # noqa: E731
     from neuron_gan_tpu.data.augment import AugmentSpec as JAugmentSpec
+    res = jcfg.resolution(phase)
     images = j_augment_batch(jnp.asarray(raw), jax.random.fold_in(k_batch, 0),
-                             JAugmentSpec(crop_size=16, out_size=16,
+                             JAugmentSpec(crop_size=spec['crop_size'], out_size=res,
                                           translation=0.05))
     z1, z2, eps = (jnp.asarray(v.numpy()) for v in draws['critic'][0])
 
@@ -190,13 +193,41 @@ def test_batch_step_matches_jax(params):
     assert_grads_close(port_d_grads, jd_grads)
     assert_grads_close(port_g_grads, jg_grads)
 
-    jstate, jstats = run_jax_step(params, spec, raw, k_batch, alpha, lr, lam)
+    jstate, jstats = run_jax_step(params, spec, raw, k_batch, alpha, lr, lam, jcfg)
     assert_params_close(port_d_after, jstate['d_params'], lr)
     assert_params_close(to_jax_tree(state.g), jstate['g_params'], lr)
     # critic-side stats before any update; G_loss after the critic's step
     np.testing.assert_allclose(stats[[0, 1, 2, 4, 5]], jstats[[0, 1, 2, 4, 5]],
                                rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(stats[3], jstats[3], rtol=0, atol=5e-3)
+
+
+def test_batch_step_matches_jax(params):
+    check_batch_step(params, JCFG, TCFG, dict(SPEC), FRAME)
+
+
+# the packed configuration at a small size: blocks at 32^2 and above in the
+# 2x2 layout with every packed kernel on (JAX: its Pallas kernels
+# interpreted, at precision=None, which its pallas_conv gate needs)
+PACKED_ARCH = dict(n_gen_features=(16, 8, 8), n_dis_features=(8, 8, 16),
+                   latent_dim=8, image_size_init=16, packed_min_res=32)
+JCFG_P = JPGConfig(**PACKED_ARCH, precision=None, use_pallas=True,
+                   pallas_epilogue=True, pallas_conv=True,
+                   fuse_up2_conv=False, fuse_pool_conv=False)
+TCFG_P = PGConfig(**PACKED_ARCH, use_kernels=True)
+PACKED_SPEC = dict(SPEC, crop_size=64)
+PACKED_FRAME = 96
+
+
+@pytest.fixture(scope='module')
+def packed_params():
+    kg, kd = jax.random.split(jax.random.PRNGKey(1))
+    return (jax.tree.map(np.asarray, init_generator_pg(kg, JCFG_P)),
+            jax.tree.map(np.asarray, init_discriminator_pg(kd, JCFG_P)))
+
+
+def test_packed_batch_step_matches_jax(packed_params):
+    check_batch_step(packed_params, JCFG_P, TCFG_P, dict(PACKED_SPEC), PACKED_FRAME)
 
 
 @pytest.mark.parametrize('variant', [
@@ -261,6 +292,68 @@ def test_epilogue_launches_per_step(params, monkeypatch, phase, fading):
         state, torch.rand(2, FRAME, FRAME, 1, generator=gen), draws, 0.5, LR, 0.0)
     assert calls == {'fwd': 14 * phase, 'bwd': 12 * phase}
 
+
+def load_chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / 'chip_smoke.py'
+    spec_ = importlib.util.spec_from_file_location('chip_smoke', path)
+    smoke = importlib.util.module_from_spec(spec_)
+    spec_.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.parametrize('phase,fading', [(1, False), (2, False), (2, True)])
+def test_packed_launches_per_step(packed_params, monkeypatch, phase, fading):
+    # the counts chip_smoke.py expects on the card for the packed path
+    # (chip_smoke.expected_launches), counted here by wrapping each launch
+    import neuron_gan_tpu_torch.ops.packed_conv_lrelu_pn as pcl
+    smoke = load_chip_smoke()
+
+    calls = {'k1': {}, 'k2': {}, 'k3': 0, 'k4': 0}
+
+    def count_grouped(name, fn):
+        def wrapped(x, *a):
+            n_groups = a[-3]            # (..., n_groups, neg_slope, eps)
+            calls[name][n_groups] = calls[name].get(n_groups, 0) + 1
+            return fn(x, *a)
+        return wrapped
+
+    def count(name, fn):
+        def wrapped(*a):
+            calls[name] += 1
+            return fn(*a)
+        return wrapped
+
+    monkeypatch.setattr(lpn, '_fwd', count_grouped('k1', lpn._fwd))
+    monkeypatch.setattr(lpn, '_bwd', count_grouped('k2', lpn._bwd))
+    monkeypatch.setattr(pcl, '_conv_fwd', count('k3', pcl._conv_fwd))
+    monkeypatch.setattr(pcl, '_dz', count('k4', pcl._dz))
+    spec = dict(PACKED_SPEC, phase=phase, fading=fading)
+    state = port_state(packed_params, spec, TCFG_P)
+    gen = torch.Generator().manual_seed(0)
+    draws = tts.draw_batch(gen, TCFG_P, tts.ChunkSpec(**spec), 2, PACKED_FRAME)
+    tts.make_batch_step(TCFG_P, tts.ChunkSpec(**spec))(
+        state, torch.rand(2, PACKED_FRAME, PACKED_FRAME, 1, generator=gen), draws,
+        0.5, LR, 0.0)
+    assert calls == smoke.expected_launches(TCFG_P, [phase])
+    assert calls['k3'] and calls['k4'] and calls['k1'].get(4)
+    # the unpacked path's counts, as test_epilogue_launches_per_step has them
+    assert smoke.expected_launches(TCFG, [phase]) == {
+        'k1': {1: 14 * phase}, 'k2': {1: 12 * phase}, 'k3': 0, 'k4': 0}
+
+
+
+def test_flagship_packed_launches_per_512_step():
+    # the packed flagship differs from the unpacked one only in its layout
+    # (use_kernels gates all four kernels); a steady 512^2 step launches
+    # the counts PERF.md lists
+    from neuron_gan_tpu_torch.flagship import (
+        flagship_config, flagship_packed_config)
+    cfg = flagship_packed_config()
+    assert cfg == dataclasses.replace(flagship_config(), packed_min_res=64)
+    assert load_chip_smoke().expected_launches(cfg, [5]) == {
+        'k1': {1: 22, 4: 24}, 'k2': {1: 22, 4: 19}, 'k3': 24, 'k4': 19}
 
 # ---------------------------------------------------------------------------
 # epoch runner
