@@ -14,10 +14,12 @@ Phases, each printing one JSON line:
 2. build    every CUDA kernel of the port, built from csrc/ with nvcc, all
             sources at once;
 3. kernels  each kernel against its plain PyTorch version on the card, at
-            every shape a training path gives it (plus a ragged case):
-            forward, backward and a GP-style second order; each kernel's,
-            its plain version's and (for the packed conv) F.conv2d's times
-            at the largest shape;
+            every shape a training path gives it (plus ragged cases):
+            forward, backward and a GP-style second order; each kernel's
+            and its plain version's times at the largest shape; the packed
+            conv forward (K3) also against a float64 run there, and its,
+            its plain version's and F.conv2d's times at every distinct
+            shape;
 4. train    for each path: the PGGAN, random weights from --seed, trained
             with WGAN-GP + drift through the epoch runner under a schedule
             that visits every phase and fade-in and ends at steady 512^2;
@@ -77,6 +79,7 @@ def cuda_ms(fn, iters=30, warmup=3):
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12     # H100 SXM TF32 tensor cores, dense
 
 # every LReLU + PixelNorm epilogue shape of the unpacked flagship path at
 # batch 8: G blocks (C, R) and D blocks (C, R)
@@ -203,16 +206,12 @@ PACKED_TOL = {
 
 def packed_case(torch, gen, b, k, n, h, w):
     """x (b, k, h, w) and an equalized packed kernel (n, k, 3, 3) built from
-    a random original kernel, as the path builds it (3/4 zeros); a dense
-    random one where k or n is not a multiple of 4."""
+    a random original kernel, as the path builds it (3/4 zeros, which the
+    forward kernel skips)."""
     from neuron_gan_tpu_torch.ops import packed as pk
     x = torch.randn((b, k, h, w), generator=gen, device='cuda')
-    if k % 4 or n % 4:
-        wp = 0.1 * torch.randn((n, k, 3, 3), generator=gen, device='cuda')
-    else:
-        w = torch.randn((n // 4, k // 4, 3, 3), generator=gen, device='cuda')
-        wp = pk.pack_conv3x3_weight(w, pk._eq_scale3x3(w, 0.2))
-    return x, wp
+    w = torch.randn((n // 4, k // 4, 3, 3), generator=gen, device='cuda')
+    return x, pk.pack_conv3x3_weight(w, pk._eq_scale3x3(w, 0.2))
 
 
 def _close_scaled(torch, got, want, rel_atol):
@@ -294,45 +293,81 @@ def check_packed_kernels(torch, pcl, seed):
                       (8, 64, 64, 128, 128)):
             check_gp(*shape)
 
-        # times at the largest shape of the path, x (8, 64, 256, 256)
+        # K3 and the plain version against a float64 plain run at the
+        # largest site of the path, x (8, 64, 256, 256): K3's largest error
+        # (relative to the output's largest magnitude, y and r) may be at
+        # most twice the float32 plain version's
         b, k, n, side = 8, 64, 64, 256
         x, wp = packed_case(torch, gen, b, k, n, side, side)
         y, r = pcl._conv_fwd(x, wp, 0.2, 1e-8)
+        y0, r0 = pcl.packed_conv_lrelu_pn_plain(x, wp)
+        y64, r64 = pcl.packed_conv_lrelu_pn_plain(x.double(), wp.double())
+
+        def rel_max(pair):
+            return max(((a.double() - b_).abs().max() / b_.abs().max()).item()
+                       for a, b_ in zip(pair, (y64, r64)))
+
+        vs64 = {'conv': rel_max((y, r)), 'plain': rel_max((y0, r0))}
+        assert vs64['conv'] <= 2 * vs64['plain'], vs64
+        del y64, r64
+
+        # times of K3 (its two kernels, and the whole wrapper with the
+        # weight gather), the plain version and F.conv2d at each distinct
+        # packed conv2 shape of the path; the largest site also for K4
+        by_shape = []
+        for n_s, side_s in sorted(set(PACKED_SHAPES)):
+            xs, wps = packed_case(torch, gen, 8, n_s, n_s, side_s, side_s)
+            launch, _, _ = pcl.conv_fwd_launcher(xs, wps)
+            by_shape.append({
+                'x': [8, n_s, side_s, side_s], 'n': n_s,
+                'smem_bytes': pcl.conv_fwd_smem(n_s),
+                'kernels_ms': cuda_ms(launch),
+                'wrapper_ms': cuda_ms(lambda: pcl._conv_fwd(xs, wps, 0.2, 1e-8)),
+                'plain_ms': cuda_ms(
+                    lambda: pcl.packed_conv_lrelu_pn_plain(xs, wps)),
+                'library_ms': cuda_ms(lambda: torch.nn.functional.conv2d(
+                    xs, wps, padding=1))})
+        largest = by_shape[[e['x'] for e in by_shape].index([b, k, side, side])]
         g = torch.randn_like(y)
         ct_r = torch.randn_like(r)
         times = {
-            'conv_ms': cuda_ms(lambda: pcl._conv_fwd(x, wp, 0.2, 1e-8)),
-            'conv_plain_ms': cuda_ms(
-                lambda: pcl.packed_conv_lrelu_pn_plain(x, wp)),
-            'conv_library_ms': cuda_ms(lambda: torch.nn.functional.conv2d(
-                x, wp, padding=1)),
+            'conv_ms': largest['wrapper_ms'],
+            'conv_plain_ms': largest['plain_ms'],
+            'conv_library_ms': largest['library_ms'],
             'dz_ms': cuda_ms(lambda: pcl._dz(y, r, g, ct_r, 0.2)),
             'dz_plain_ms': cuda_ms(
                 lambda: pcl.packed_dz_plain(y, r, g, ct_r)),
         }
-    # least work: the conv's multiply-adds over the nonzero taps of this
-    # w_packed (3/4 of a packed kernel are zeros by construction), then
-    # the epilogue; the dense count, what K3 does, is reported beside it
+    # least work: the conv over the nonzero taps of this w_packed (3/4 of a
+    # packed kernel are zeros by construction), as K3 does it -- three TF32
+    # products per multiply-add on the tensor cores -- against the bytes;
+    # beside it the same taps on the float32 pipes (what a float32 kernel
+    # would need) and the dense count (what PR 2's kernel did)
     pix = b * side * side
+    nonzero_macs = int(torch.count_nonzero(wp)) * pix
     conv_bytes = 4 * (pix * k + n * k * 9 + pix * n + pix * 4)
-    conv_ops = 2 * int(torch.count_nonzero(wp)) * pix + 8 * pix * n
+    conv_ops = 3 * 2 * nonzero_macs
+    conv_f32_ops = 2 * nonzero_macs + 8 * pix * n
     conv_dense_ops = 2 * 9 * k * n * pix + 8 * pix * n
     dz_bytes = 4 * (3 * pix * n + 2 * pix * 4)
     dz_ops = 12 * pix * n
 
-    def bound(n_bytes, n_ops):
-        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    def bound(n_bytes, n_ops, ops_per_s=F32_OPS_PER_S):
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
         return (max(t_bytes, t_ops) * 1e3,
                 'bytes' if t_bytes > t_ops else 'operations')
 
-    bounds = {'conv': bound(conv_bytes, conv_ops),
+    bounds = {'conv': bound(conv_bytes, conv_ops, TF32_OPS_PER_S),
+              'conv_f32': bound(conv_bytes, conv_f32_ops),
               'conv_dense': bound(conv_bytes, conv_dense_ops),
               'dz': bound(dz_bytes, dz_ops)}
     return {'max_abs_err': err, 'checked': checked,
+            'rel_max_err_vs_float64': vs64,
             'timed_x': [b, k, side, side], 'timed_n': n, **times,
+            'conv_by_shape': by_shape,
             'bytes': {'conv': conv_bytes, 'dz': dz_bytes},
-            'flop': {'conv': conv_ops, 'conv_dense': conv_dense_ops,
-                     'dz': dz_ops},
+            'flop': {'conv': conv_ops, 'conv_f32': conv_f32_ops,
+                     'conv_dense': conv_dense_ops, 'dz': dz_ops},
             'bound_ms': {key: v[0] for key, v in bounds.items()},
             'bound_by': {key: v[1] for key, v in bounds.items()}}
 
@@ -640,8 +675,9 @@ def main():
     built = kernels.build()
     emit({'phase': 'build', 'seconds': round(time.perf_counter() - t0, 3),
           'kernels': {n: {'seconds': round(s, 3),
-                          'ptxas': [ln for ln in log.splitlines()
-                                    if 'registers' in ln or 'spill' in ln]}
+                          'ptxas': [ln.strip() for ln in log.splitlines()
+                                    if 'registers' in ln or 'spill' in ln
+                                    or 'entry function' in ln]}
                       for n, (s, log) in built.items()}})
 
     epi = check_epilogue_kernels(torch, lpn, args.seed)

@@ -14,6 +14,12 @@ output channels are 4 parity groups of C = N / 4.  The forward returns
 
 so the backward never needs the pre-activation: u = y / r.
 
+The forward kernel multiplies only the entries of ``w_packed`` that
+``pack_conv3x3_weight`` can make nonzero (a quarter of them), gathered by
+``compact_weight`` into wc (4, 3, 3, K/4, N/4); it assumes the rest are
+zero, as on every call site.  It runs the products on tensor cores at
+float32 accuracy (3xTF32, emulated by ``packed_conv3x3_taps``).
+
 Gradients mirror the JAX package's two custom VJPs:
 
 * ``PackedConvLReluPN`` (``_fused_pair``): forward = K3, saving
@@ -34,11 +40,14 @@ A CPU tensor takes the plain versions; a CUDA tensor launches the kernels
 or raises if they cannot take it -- never a silent fall back.  Both kernels
 are float32 only: bfloat16 arrives with ``compute_dtype='mixed'`` (ROADMAP
 A5).  ``conv_launches`` and ``dz_launches`` count kernel launches, and
-nothing else.
+nothing else; one forward launch is the weight split and the conv kernel
+after it.
 """
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -60,13 +69,20 @@ def _groups(t):
     return t.reshape(b, 4, n // 4, *t.shape[2:])
 
 
-def packed_conv_lrelu_pn_plain(x, w_packed, neg_slope=0.2, eps=1e-8):
-    """Plain version of the forward kernel: (y, r).  Differentiable."""
-    z = F.conv2d(x, w_packed.to(x.dtype), padding=1).float()
+def lrelu_pn_groups(z, neg_slope=0.2, eps=1e-8, dtype=None):
+    """The forward's epilogue on a pre-activation z (B, N, H, W): (y, r),
+    y in ``dtype`` (z's by default)."""
+    z = z.to(torch.promote_types(z.dtype, torch.float32))
     u = _groups(torch.where(z >= 0, z, z * neg_slope))
     r = torch.rsqrt(torch.mean(u * u, dim=2) + eps)          # (B, 4, H, W)
-    y = (u * r.unsqueeze(2)).reshape(z.shape).to(x.dtype)
-    return y, r
+    y = (u * r.unsqueeze(2)).reshape(z.shape)
+    return y.to(dtype or y.dtype), r
+
+
+def packed_conv_lrelu_pn_plain(x, w_packed, neg_slope=0.2, eps=1e-8):
+    """Plain version of the forward kernel: (y, r).  Differentiable."""
+    z = F.conv2d(x, w_packed.to(x.dtype), padding=1)
+    return lrelu_pn_groups(z, neg_slope, eps, x.dtype)
 
 
 def packed_dz_plain(y, r, g, ct_r, neg_slope=0.2):
@@ -81,6 +97,105 @@ def packed_dz_plain(y, r, g, ct_r, neg_slope=0.2):
     du = gf * s - u * (s ** 3) * (t / c)
     dz = torch.where(u >= 0, du, du * neg_slope)
     return dz.reshape(y.shape).to(y.dtype)
+
+
+# ---------------------------------------------------------------------------
+# the forward kernel's compact weights and its tap formulation
+# ---------------------------------------------------------------------------
+
+def _tap_source(a, t):
+    """Output parity a, original tap t -> (packed offset P, input parity
+    a'): divmod(a + t - 1, 2), as ops/packed.py::_pack_transfer_tensor."""
+    return divmod(a + t - 1, 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _compact_index(k, n, device):
+    """Flat indices into a contiguous (N, K, 3, 3) packed kernel of the
+    compact weights wc[g, ty, tx, k0, c], g = a * 2 + b: the one packed tap
+    and input parity that carry original tap (ty, tx) from input channel k0
+    to output channel c of group g.  Cached per device: a host-to-device
+    copy in every step would make the host wait for the device."""
+    k0, c = k // 4, n // 4
+    idx = np.empty((4, 3, 3, k0, c), np.int64)
+    for a in (0, 1):
+        for b in (0, 1):
+            for ty in range(3):
+                p, ap = _tap_source(a, ty)
+                for tx in range(3):
+                    q, bp = _tap_source(b, tx)
+                    o = (a * 2 + b) * c + np.arange(c)
+                    i = (ap * 2 + bp) * k0 + np.arange(k0)
+                    idx[a * 2 + b, ty, tx] = ((o[None, :] * k + i[:, None]) * 3
+                                              + p + 1) * 3 + q + 1
+    return torch.from_numpy(idx).to(device)
+
+
+def compact_weight(w_packed):
+    """(N, K, 3, 3) packed kernel -> wc (4, 3, 3, K/4, N/4), the weights
+    the forward kernel multiplies.  Precondition: ``w_packed`` is zero off
+    those entries, as every ``pack_conv3x3_weight`` output is (a CPU test
+    proves it for the path's shapes); it is not checked at run time, which
+    would stall the host in every step."""
+    n, k = w_packed.shape[:2]
+    return w_packed.reshape(-1)[_compact_index(k, n, w_packed.device)]
+
+
+def tf32_round(t):
+    """Float32 to TF32 as ``cvt.rna.tf32.f32`` rounds a finite value, and
+    as the forward kernel does it: to 10 explicit mantissa bits, ties away
+    from zero (the low 13 bits cleared)."""
+    bits = t.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1fff).view(torch.float32)
+
+
+def split_tf32(t):
+    """(hi, lo) = (tf32(t), tf32(t - hi)): the forward kernel's 3xTF32
+    operands."""
+    hi = tf32_round(t)
+    return hi, tf32_round(t - hi)
+
+
+def _tap_product(xs, wt, products):
+    def mm(a, w):
+        return torch.einsum('bkhw,kc->bchw', a, w)
+    if products == 'exact':
+        return mm(xs, wt)
+    (xh, xl), (wh, wl) = split_tf32(xs), split_tf32(wt)
+    if products == '1xtf32':
+        return mm(xh, wh)
+    if products == '3xtf32':
+        return mm(xl, wh) + mm(xh, wl) + mm(xh, wh)
+    raise ValueError(f'unknown products {products!r}')
+
+
+def packed_conv3x3_taps(x, wc, products='exact'):
+    """z = conv3x3(x, w_packed) from the compact weights ``wc`` (see
+    ``compact_weight``), tap by tap as the forward kernel indexes them:
+    for each output group g = (a, b) and original tap (ty, tx), one
+    shifted slice of input parity (a', b') times wc[g, ty, tx].
+
+    ``products``: 'exact' multiplies in x's dtype; '3xtf32' emulates the
+    kernel's tensor-core products (lo*hi + hi*lo + hi*hi of TF32 splits,
+    float32 sums); '1xtf32' one TF32 product.  Runs on nothing on the
+    card's main path: the CPU tests hold the kernel's index map and
+    numerics with it."""
+    b, k, h, w = x.shape
+    k0 = k // 4
+    xp = F.pad(x, (1, 1, 1, 1))
+    zs = []
+    for a in (0, 1):
+        for bb in (0, 1):
+            z = 0
+            for ty in range(3):
+                p, ap = _tap_source(a, ty)
+                for tx in range(3):
+                    q, bp = _tap_source(bb, tx)
+                    c0 = (ap * 2 + bp) * k0
+                    xs = xp[:, c0:c0 + k0, 1 + p:1 + p + h, 1 + q:1 + q + w]
+                    z = z + _tap_product(xs, wc[a * 2 + bb, ty, tx], products)
+            zs.append(z)
+    return torch.cat(zs, dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -101,6 +216,9 @@ def _check_conv_args(x, w_packed):
     if n not in KERNEL_WIDTHS:
         raise ValueError(f'packed_conv_lrelu_pn kernel takes N in '
                          f'{KERNEL_WIDTHS} output channels, got {n}')
+    if k % 4:
+        raise ValueError(f'packed_conv_lrelu_pn kernel needs 4 parity groups '
+                         f'of input channels, got K = {k}')
     if x.device != w_packed.device:
         raise ValueError('x and w_packed must share a device')
     if not x.is_contiguous():
@@ -130,12 +248,17 @@ def _lib():
     lib = kernels.load('packed_conv_lrelu_pn')
     if lib.packed_conv_lrelu_pn_fwd.argtypes is None:
         ptr, i64, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
-        lib.packed_conv_lrelu_pn_fwd.argtypes = [ptr, ptr, ptr, ptr, i64, i64,
-                                                 i64, i64, i64, f32, f32, ptr]
+        lib.packed_conv_lrelu_pn_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i64,
+                                                 i64, i64, i64, i64, f32, f32,
+                                                 ptr]
         lib.packed_conv_lrelu_pn_dz.argtypes = [ptr, ptr, ptr, ptr, ptr, i64,
                                                 i64, i64, f32, ptr]
+        lib.packed_conv_lrelu_pn_fwd_smem.argtypes = [i64]
+        lib.packed_conv_lrelu_pn_fwd_scratch.argtypes = [i64, i64]
+        lib.packed_conv_lrelu_pn_fwd_scratch.restype = i64
         lib.packed_conv_lrelu_pn_fwd.restype = ctypes.c_int
         lib.packed_conv_lrelu_pn_dz.restype = ctypes.c_int
+        lib.packed_conv_lrelu_pn_fwd_smem.restype = ctypes.c_int
     return lib
 
 
@@ -150,26 +273,47 @@ def _raise_on(rc, what):
         raise RuntimeError(f'{what} kernel launch failed with CUDA error {rc}')
 
 
-def _conv_fwd(x, w_packed, neg_slope, eps):
-    global conv_launches
-    if x.device.type == 'cpu':
-        return packed_conv_lrelu_pn_plain(x, w_packed, neg_slope, eps)
+def conv_fwd_launcher(x, w_packed, neg_slope=0.2, eps=1e-8):
+    """(launch, y, r) for CUDA tensors: the forward's outputs, allocated,
+    and a function that launches its kernels (the weight split, then the
+    conv) on these inputs into them.  The wrapper's work less the launch
+    count; chip_smoke.py times the kernels with it."""
     _check_device(x)
     _check_conv_args(x, w_packed)
     b, k, h, w = x.shape
     n = w_packed.shape[0]
-    # (K, 3, 3, N): a group's C weights of one tap lie side by side
-    wt = w_packed.permute(1, 2, 3, 0).contiguous()
+    lib = _lib()
+    wc = compact_weight(w_packed.contiguous())
+    # the kernel's weights split into TF32 (hi, lo), in fragment order
+    scratch = torch.empty(lib.packed_conv_lrelu_pn_fwd_scratch(k, n),
+                          dtype=torch.float32, device=x.device)
     y = torch.empty((b, n, h, w), dtype=x.dtype, device=x.device)
     r = torch.empty((b, 4, h, w), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = _lib().packed_conv_lrelu_pn_fwd(
-            x.data_ptr(), wt.data_ptr(), y.data_ptr(), r.data_ptr(), b, k, n,
-            h, w, neg_slope, eps, stream)
-    _raise_on(rc, 'packed_conv_lrelu_pn forward')
+
+    def launch():
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            rc = lib.packed_conv_lrelu_pn_fwd(
+                x.data_ptr(), wc.data_ptr(), scratch.data_ptr(), y.data_ptr(),
+                r.data_ptr(), b, k, n, h, w, neg_slope, eps, stream)
+        _raise_on(rc, 'packed_conv_lrelu_pn forward')
+    return launch, y, r
+
+
+def _conv_fwd(x, w_packed, neg_slope, eps):
+    global conv_launches
+    if x.device.type == 'cpu':
+        return packed_conv_lrelu_pn_plain(x, w_packed, neg_slope, eps)
+    launch, y, r = conv_fwd_launcher(x, w_packed, neg_slope, eps)
+    launch()
     conv_launches += 1
     return y, r
+
+
+def conv_fwd_smem(n):
+    """Dynamic shared memory, in bytes, of the forward kernel for N output
+    channels."""
+    return _lib().packed_conv_lrelu_pn_fwd_smem(n)
 
 
 def _dz(y, r, g, ct_r, neg_slope):

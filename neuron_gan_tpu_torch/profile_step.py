@@ -5,18 +5,22 @@
 Runs the flagship trainer (``flagship.py``) at steady 512^2 from random
 weights (seed 0) and a synthetic (16, 768, 768, 1) stack, once for each of
 its two configurations (unpacked, then the 2x2 packed layout; kernels on in
-both).  After one warm-up epoch it traces two epochs of 2 steps each with
-torch.profiler, then two more with input shapes recorded.  Prints one JSON
-line per configuration: from the first window, device time per step, the
-device's idle share of the wall time, device time by kind (cuDNN/ATen
+both), then the packed one with the kernels off (``use_kernels=False``),
+which gives the kernel path's gain over the plain packed path.  After one
+warm-up epoch it traces two epochs of 2 steps each with torch.profiler,
+then two more with input shapes recorded.  Prints one JSON line per
+configuration: from the first window, device time per step, the device's
+idle share of the wall time, device time by kind (cuDNN/ATen
 convolution, the LeakyReLU+PixelNorm kernels, the fused packed conv
-kernels, the rest) and the top kernels by device time; from the second,
-the top ATen ops by the device time of the kernels they launch, with their
-input shapes; and the card's nvidia-smi name and power limit.
+kernels K3 -- its weight split included -- and K4, the rest) and the top
+kernels by device time; from the second, the top ATen ops by the device
+time of the kernels they launch, with their input shapes; and the card's
+nvidia-smi name and power limit.
 
 Needs a CUDA card; exits 2 without one.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -35,8 +39,10 @@ SEED = 0
 
 def _kind(name):
     low = name.lower()
-    if 'packed_conv_fwd' in low or 'packed_dz' in low:
-        return 'packed_conv_lrelu_pn'
+    if 'packed_conv_fwd' in low or 'split_weights' in low:
+        return 'k3_packed_conv_fwd'
+    if 'packed_dz' in low:
+        return 'k4_packed_dz'
     if 'lrelu_pn' in low:
         return 'lrelu_pixel_norm'
     if any(k in low for k in ('conv', 'cudnn', 'xmma', 'implicit', 'winograd',
@@ -125,8 +131,10 @@ def main():
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     images = torch.from_numpy(np.random.default_rng(SEED).random(
         (16, 768, 768, 1)).astype(np.float32)).to('cuda')
-    for name, cfg in (('unpacked', flagship_config()),
-                      ('packed', flagship_packed_config())):
+    packed = flagship_packed_config()
+    for name, cfg in (('unpacked', flagship_config()), ('packed', packed),
+                      ('packed_plain',
+                       dataclasses.replace(packed, use_kernels=False))):
         print(json.dumps(profile(name, cfg, images, smi)), flush=True)
     return 0
 

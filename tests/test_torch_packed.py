@@ -9,6 +9,8 @@ rtol 1e-5 / atol 1e-6 (the weight scatter exact); the fused conv those of
 tests/test_pallas_conv.py -- y and r rtol 1e-5 / atol 1e-5, dx rtol 1e-4 /
 atol 1e-5, dw rtol 1e-4 / atol 1e-4, the GP second order rtol 1e-4 /
 atol 1e-3 (sums of 9*K products in another order, differentiated twice).
+The forward kernel's compact weights, tap formulation and 3xTF32 numerics
+are held here too, since the kernel itself runs only on the card.
 """
 
 import numpy as np
@@ -329,7 +331,8 @@ def test_fused_conv_third_order_raises():
         torch.autograd.grad(g.pow(2).sum(), xt, create_graph=True)
 
 
-@pytest.mark.parametrize('bad', ['dtype', 'contiguous', 'width', 'kernel', 'channels'])
+@pytest.mark.parametrize('bad', ['dtype', 'contiguous', 'width', 'kernel', 'channels',
+                                 'parity_groups'])
 def test_conv_kernel_argument_checks_raise(bad):
     x, w = torch.zeros(2, 16, 4, 4), torch.zeros(16, 16, 3, 3)
     if bad == 'dtype':
@@ -340,6 +343,8 @@ def test_conv_kernel_argument_checks_raise(bad):
         w = torch.zeros(12, 16, 3, 3)
     elif bad == 'kernel':
         w = torch.zeros(16, 16, 1, 1)
+    elif bad == 'parity_groups':
+        x, w = torch.zeros(2, 18, 4, 4), torch.zeros(16, 18, 3, 3)
     else:
         w = torch.zeros(16, 8, 3, 3)
     with pytest.raises((TypeError, ValueError)):
@@ -378,3 +383,78 @@ def test_cpu_launches_do_not_count():
     xt = nchw(x).requires_grad_()
     port_pair(xt, oihw(wp))[0].sum().backward()
     assert (pcl.conv_launches, pcl.dz_launches) == before
+
+
+# ---------------------------------------------------------------------------
+# the forward kernel's compact weights, index map and numerics
+# ---------------------------------------------------------------------------
+
+# (K, N) of every packed conv2 on the flagship path (K = N), the ragged
+# K0 = 5 case and the narrowest width that chip_smoke.py checks
+@pytest.mark.parametrize('k,n', [(128, 128), (64, 64), (20, 32), (64, 16)])
+def test_compact_weight_round_trips_and_holds_every_nonzero(k, n):
+    w = torch.from_numpy(rand((n // 4, k // 4, 3, 3), 70 + k))
+    wp = tpk.pack_conv3x3_weight(w, tpk._eq_scale3x3(w, 0.2))
+    wc = pcl.compact_weight(wp)
+    assert wc.shape == (4, 3, 3, k // 4, n // 4)
+    idx = pcl._compact_index(k, n, wp.device).reshape(-1)
+    assert idx.unique().numel() == idx.numel() == wp.numel() // 4
+    back = torch.zeros(wp.numel())
+    back[idx] = wc.reshape(-1)
+    assert torch.equal(back.view_as(wp), wp)             # bit for bit
+    off = torch.ones(wp.numel(), dtype=torch.bool)
+    off[idx] = False
+    assert torch.count_nonzero(wp.reshape(-1)[off]) == 0  # exactly 0
+
+
+@pytest.mark.parametrize('ci,co,h,w', [(4, 4, 8, 8), (5, 8, 5, 7), (16, 4, 3, 9)])
+def test_tap_formulation_matches_plain_and_pallas(ci, co, h, w):
+    # the kernel's index map on the CPU: 9 shifted slices per group of the
+    # compact weights, then the epilogue, against the plain version (dense
+    # packed conv) and the JAX fused pair, odd H and W included
+    x = rand((2, h, w, 4 * ci), 80 + ci)
+    wp = np.asarray(jpk.pack_conv3x3_weight(jnp.asarray(rand((3, 3, ci, co), 81, 0.3)), 0.7))
+    jy, jr = jax_pair(jnp.asarray(x), jnp.asarray(wp))
+    xt, wt = nchw(x), oihw(wp)
+    ty, tr = pcl.lrelu_pn_groups(pcl.packed_conv3x3_taps(xt, pcl.compact_weight(wt)))
+    py, pr = pcl.packed_conv_lrelu_pn_plain(xt, wt)
+    torch.testing.assert_close(ty, py, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(tr, pr, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(nhwc(ty), np.asarray(jy), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(r_as_jax(tr), np.asarray(jr), rtol=1e-5, atol=1e-5)
+
+
+def test_tf32_round_is_cvt_rna():
+    # round to 10 mantissa bits, ties away from zero (round-to-even would
+    # send 1 + 2^-11 to 1)
+    got = pcl.tf32_round(torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 2 ** -12,
+                                       1 + 3 * 2 ** -11, 3.0, 0.0]))
+    assert got.tolist() == [1 + 2 ** -10, -(1 + 2 ** -10), 1.0, 1 + 2 ** -9, 3.0, 0.0]
+    hi, lo = pcl.split_tf32(torch.tensor([1 + 2 ** -11 + 2 ** -20]))
+    assert (hi + lo).item() == 1 + 2 ** -11 + 2 ** -20
+
+
+@pytest.mark.parametrize('k0', [16, 32])
+def test_3xtf32_is_float32_accurate_and_1xtf32_is_not(k0):
+    # reductions of depth 9 * K0 = 144 and 288, as at the path's K = 64
+    # and 128.  Distance from float64 by relative L2 over z.  Plain float32
+    # (the plain version's conv) lies ~1e-7 away.  3xTF32 drops lo*lo
+    # (~2^-22 of a product) and rounds lo to TF32 (~2^-22 again), the
+    # order of float32's own rounding: within 3x of plain float32.  One
+    # TF32 product keeps 11 bits (~2^-12 relative per product; ~3e-4
+    # measured here): over 1000x further, so at least 30x is asked.
+    x = torch.from_numpy(rand((2, 4 * k0, 8, 8), 90 + k0))
+    w = torch.from_numpy(rand((8, k0, 3, 3), 91))
+    wp = tpk.pack_conv3x3_weight(w, tpk._eq_scale3x3(w, 0.2))
+    wc = pcl.compact_weight(wp)
+    z64 = pcl.packed_conv3x3_taps(x.double(), wc.double())
+
+    def dist(z):
+        return ((z.double() - z64).norm() / z64.norm()).item()
+
+    d32 = dist(torch.nn.functional.conv2d(x, wp, padding=1))
+    d3 = dist(pcl.packed_conv3x3_taps(x, wc, '3xtf32'))
+    d1 = dist(pcl.packed_conv3x3_taps(x, wc, '1xtf32'))
+    assert 0 < d32 < 1e-6
+    assert d3 <= 3 * d32, (d3, d32)
+    assert d1 >= 30 * d32, (d1, d32)
