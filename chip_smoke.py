@@ -4,37 +4,49 @@ check it.
 
     python3 chip_smoke.py [--seed N]
 
-Two paths of the port are driven, both at the flagship geometry (16^2 ..
-512^2, float32, TF32 off): the unpacked layout (``flagship_config``) and
-the 2x2 packed layout with every kernel on (``flagship_packed_config``).
+Three paths of the port are driven, all at the flagship geometry (16^2 ..
+512^2): the unpacked layout (``flagship_config``) and the 2x2 packed layout
+with every kernel on (``flagship_packed_config``), both float32 with TF32
+off, and the JAX package's shipping numerics on the packed layout
+(``flagship_mixed_config``: 'mixed' at precision=None, fused level
+boundaries, every kernel in bfloat16).
 
 Phases, each printing one JSON line:
 
-1. env      torch/CUDA versions and the card (nvidia-smi name, power limit);
-2. build    every CUDA kernel of the port, built from csrc/ with nvcc, all
-            sources at once;
-3. kernels  each kernel against its plain PyTorch version on the card, at
-            every shape a training path gives it (plus ragged cases):
-            forward, backward and a GP-style second order; each kernel's
-            and its plain version's times at the largest shape; the packed
-            conv forward (K3) also against a float64 run there, and its,
-            its plain version's and F.conv2d's times at every distinct
-            shape;
-4. train    for each path: the PGGAN, random weights from --seed, trained
-            with WGAN-GP + drift through the epoch runner under a schedule
-            that visits every phase and fade-in and ends at steady 512^2;
-            stats must be finite and every kernel's launch counter must rise
-            by exactly the count the path implies (K1/K2 by grouping); then
-            steps/s over steady 512^2 steps;
-5. parity   for each path, one 512^2 batch step with the kernels, with the
-            plain ops, and with the plain ops in float64, same parameters
-            and draws, TF32 off (the packed path also against the plain
-            unpacked step): each network's gradient must lie within the
-            path's relative-L2 bound of the plain path and of float64, and
-            two planted faults must fail that bound (see ``parity``).
+1. env        torch/CUDA versions and the card (nvidia-smi name, power
+              limit);
+2. build      every CUDA kernel of the port, built from csrc/ with nvcc,
+              all sources at once;
+3. kernels    each kernel against its plain PyTorch version on the card, in
+              float32 and in bfloat16, at every shape a training path gives
+              it (plus ragged cases): forward, backward and a GP-style
+              second order, compared in the working type; each kernel's and
+              its plain version's times at the largest shape; the packed
+              conv forward (K3) also against a float64 run there, and its,
+              its plain version's and F.conv2d's times at every distinct
+              shape;
+4. boundaries each fused level boundary of the mixed path against its
+              decomposed chain at that path's shapes (float32, TF32 off),
+              and both forms' bfloat16 times;
+5. train      for each path: the PGGAN, random weights from --seed, trained
+              with WGAN-GP + drift through the epoch runner under a
+              schedule that visits every phase and fade-in and ends at
+              steady 512^2; stats must be finite and every kernel's launch
+              counter must rise by exactly the count the path implies (by
+              dtype, K1/K2 also by grouping); then steps/s over steady
+              512^2 steps;
+6. parity     for each path, one 512^2 batch step with the kernels, with the
+              plain ops and with a reference (float32 paths: the plain ops
+              in float64, and for the packed path also the plain unpacked
+              step, TF32 off; the mixed path: the float32 plain packed
+              step), same parameters and draws: each network's gradient
+              must lie within the path's relative-L2 bound of the plain
+              path and of the reference, and two planted faults must fail
+              that bound (see ``parity``).
 
-Then the kernel table (one JSON line), the card's nvidia-smi line, and last
-``{"ok": true, "device": {...}}``.  Any failed check raises and the script
+Then the kernel table (one JSON line: a float32 and a bfloat16 row for each
+kernel), the card's nvidia-smi line, and last ``{"ok": true, "device":
+{...}}``.  Any failed check raises and the script
 exits non-zero without that line; without CUDA it exits 2 at once.
 """
 
@@ -80,6 +92,7 @@ def cuda_ms(fn, iters=30, warmup=3):
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 TF32_OPS_PER_S = 495e12     # H100 SXM TF32 tensor cores, dense
+BF16_OPS_PER_S = 989e12     # H100 SXM bfloat16 tensor cores, dense
 
 # every LReLU + PixelNorm epilogue shape of the unpacked flagship path at
 # batch 8: G blocks (C, R) and D blocks (C, R)
@@ -90,6 +103,22 @@ D_SHAPES = [(16, 256), (32, 128), (32, 64), (64, 32), (128, 16)]
 # epilogues (K1 at 4 groups) take the same shapes.
 PACKED_SHAPES = [(128, 32), (128, 64), (64, 128), (64, 256),
                  (64, 128), (128, 64), (128, 32)]
+# the unpacked epilogues of the packed and mixed paths (C, R): G block 0,
+# D blocks 3 and 4; the mixed path gives K1-K4 the packed path's shapes
+UNPACKED_OF_PACKED = [(64, 32), (64, 32), (128, 16)]
+
+
+def ulp_bf16(t):
+    """One bfloat16 ulp (8 significant bits) at the largest magnitude of t."""
+    return 2.0 ** (np.floor(np.log2(t.float().abs().max().item())) - 7)
+
+
+def within_ulps(torch, got, want, n=2):
+    """got within n bfloat16 ulps of want's scale, elementwise; returns the
+    largest error."""
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= n * ulp_bf16(want), (err, n * ulp_bf16(want))
+    return err
 
 
 def rel_l2(xs, ys):
@@ -104,10 +133,13 @@ def rel_l2(xs, ys):
 # ---------------------------------------------------------------------------
 
 def check_epilogue_kernels(torch, lpn, seed):
-    """K1/K2 (the LReLU + PixelNorm pair) against their plain versions."""
+    """K1/K2 (the LReLU + PixelNorm pair) against their plain versions:
+    float32 by tolerance, bfloat16 within 2 bfloat16 ulps of the output's
+    scale (both compute in float32 and round once)."""
     gen = torch.Generator(device='cuda').manual_seed(seed)
     dev = 'cuda'
-    err = {'fwd': 0.0, 'bwd': 0.0}
+    err = {'fwd': 0.0, 'bwd': 0.0, 'fwd_bf16': 0.0, 'bwd_bf16': 0.0,
+           'gp_bf16_rel_l2': 0.0}
     checked = []
 
     def randn(shape, dtype=torch.float32):
@@ -121,25 +153,32 @@ def check_epilogue_kernels(torch, lpn, seed):
         ref = lpn.lrelu_pixel_norm_plain(x, n_groups)
         ref_dx = lpn.lrelu_pixel_norm_bwd_plain(x, g, n_groups)
         assert out.dtype == dtype and dx.dtype == dtype
-        torch.testing.assert_close(out, ref, **tol_f)
-        torch.testing.assert_close(dx, ref_dx, **tol_b)
         if dtype == torch.float32:
+            torch.testing.assert_close(out, ref, **tol_f)
+            torch.testing.assert_close(dx, ref_dx, **tol_b)
             err['fwd'] = max(err['fwd'], (out - ref).abs().max().item())
             err['bwd'] = max(err['bwd'], (dx - ref_dx).abs().max().item())
+        else:
+            err['fwd_bf16'] = max(err['fwd_bf16'], within_ulps(torch, out, ref))
+            err['bwd_bf16'] = max(err['bwd_bf16'],
+                                  within_ulps(torch, dx, ref_dx))
         checked.append({'shape': list(shape), 'n_groups': n_groups,
                         'dtype': str(dtype).replace('torch.', '')})
 
     f32_f = dict(rtol=1e-5, atol=1e-6)
     f32_b = dict(rtol=1e-4, atol=1e-5)
-    bf16 = dict(rtol=2e-2, atol=2e-2)
     for c, r in G_SHAPES + D_SHAPES:
         check((8, c, r, r), 1, torch.float32, f32_f, f32_b)
     for n, s in sorted(set(PACKED_SHAPES)):
         check((8, n, s, s), 4, torch.float32, f32_f, f32_b)
     check((8, 64, 16, 16), 8, torch.float32, f32_f, f32_b)
     check((3, 16, 5, 7), 1, torch.float32, f32_f, f32_b)     # ragged tail
-    check((8, 16, 256, 256), 1, torch.bfloat16, bf16, bf16)
-    check((8, 64, 32, 32), 4, torch.bfloat16, bf16, bf16)
+    # every shape of the mixed path in bfloat16
+    for c, r in sorted(set(UNPACKED_OF_PACKED)):
+        check((8, c, r, r), 1, torch.bfloat16, None, None)
+    for n, s in sorted(set(PACKED_SHAPES)):
+        check((8, n, s, s), 4, torch.bfloat16, None, None)
+    check((3, 16, 5, 7), 1, torch.bfloat16, None, None)
 
     # GP-style second order through the autograd Functions: the gradient
     # norm of a toy critic (per-channel scale -> epilogue -> random linear
@@ -164,6 +203,21 @@ def check_epilogue_kernels(torch, lpn, seed):
                        x, c, w0)
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
         checked.append({'gp_second_order': list(shape), 'n_groups': n_groups})
+    # bfloat16: K2 computes the LeakyReLU in float32, the plain backward
+    # rounds it to bfloat16 first, so by relative L2
+    for shape, n_groups in (((2, 16, 3, 3), 4), ((8, 64, 32, 32), 1),
+                            ((8, 128, 32, 32), 4)):
+        x, c = randn(shape), randn(shape)
+        w0 = 0.5 + torch.rand((1, shape[1], 1, 1), generator=gen, device=dev)
+        got = gp_grad(lambda v: lpn.lrelu_pixel_norm(
+            v.bfloat16(), n_groups).float(), x, c, w0)
+        want = gp_grad(lambda v: lpn.lrelu_pixel_norm_plain(
+            v.bfloat16(), n_groups).float(), x, c, w0)
+        dist = rel_l2([got], [want])
+        assert dist <= BF16_TOL['gp_rel_l2'], (shape, n_groups, dist)
+        err['gp_bf16_rel_l2'] = max(err['gp_bf16_rel_l2'], dist)
+        checked.append({'gp_second_order': list(shape), 'n_groups': n_groups,
+                        'dtype': 'bfloat16'})
 
     # times at the largest shape of the unpacked path, (8, 16, 512, 512)
     shape = (8, 16, 512, 512)
@@ -177,11 +231,26 @@ def check_epilogue_kernels(torch, lpn, seed):
     }
     # least time: each input read once, each output written once (bytes),
     # against about 6 (fwd) and 12 (bwd) float32 operations per element
+    # bfloat16 at the mixed path's largest shape, (8, 64, 256, 256) at 4
+    # groups (the same bytes as (8, 16, 512, 512))
+    shape_bf16 = (8, 64, 256, 256)
+    xb, gb = randn(shape_bf16, torch.bfloat16), randn(shape_bf16, torch.bfloat16)
+    times.update({
+        'fwd_bf16_ms': cuda_ms(lambda: lpn._fwd(xb, 4, 0.2, 1e-8)),
+        'fwd_bf16_plain_ms': cuda_ms(lambda: lpn.lrelu_pixel_norm_plain(xb, 4)),
+        'bwd_bf16_ms': cuda_ms(lambda: lpn._bwd(xb, gb, 4, 0.2, 1e-8)),
+        'bwd_bf16_plain_ms': cuda_ms(
+            lambda: lpn.lrelu_pixel_norm_bwd_plain(xb, gb, 4)),
+    })
+    nb = xb.numel()
     bounds = {
         'fwd': max(2 * numel * 4 / HBM_BYTES_PER_S, 6 * numel / F32_OPS_PER_S),
         'bwd': max(3 * numel * 4 / HBM_BYTES_PER_S, 12 * numel / F32_OPS_PER_S),
+        'fwd_bf16': max(2 * nb * 2 / HBM_BYTES_PER_S, 6 * nb / F32_OPS_PER_S),
+        'bwd_bf16': max(3 * nb * 2 / HBM_BYTES_PER_S, 12 * nb / F32_OPS_PER_S),
     }
     return {'max_abs_err': err, 'checked': checked, 'timed_shape': list(shape),
+            'timed_shape_bf16': list(shape_bf16), 'timed_n_groups_bf16': 4,
             **times, 'bound_ms': {k: v * 1e3 for k, v in bounds.items()}}
 
 
@@ -202,6 +271,16 @@ PACKED_TOL = {
     'grad': 1e-4,
     'rel_l2': 1e-3,      # dx, dw and the GP gradients against plain autograd
 }
+
+
+# Tolerances of the kernels in bfloat16 against their plain versions, in
+# the working type.  y, dz, and K1/K2's outputs elementwise within 2
+# bfloat16 ulps of the output's scale (within_ulps).  K3's r against the
+# plain version's: relative, since the plain version rounds the
+# pre-activation to bfloat16 and the kernel does not.  dx, dw and the GP
+# second order by relative L2, as in float32.  About 3x the largest
+# reading on an H100 (PERF.md): r 3.6e-3, dx/dw 4.5e-3, GP 6.4e-3.
+BF16_TOL = {'r_rtol': 1e-2, 'grad_rel_l2': 1.5e-2, 'gp_rel_l2': 2e-2}
 
 
 def packed_case(torch, gen, b, k, n, h, w):
@@ -372,13 +451,242 @@ def check_packed_kernels(torch, pcl, seed):
             'bound_by': {key: v[1] for key, v in bounds.items()}}
 
 
+def check_packed_kernels_bf16(torch, pcl, seed):
+    """K3/K4 in bfloat16 against their plain versions (F.conv2d in
+    bfloat16, then the float32 epilogue; the float32 dz math), in the
+    working type (BF16_TOL): x, y, the cotangent of y and dz in bfloat16,
+    w_packed, r and its cotangent in float32."""
+    gen = torch.Generator(device='cuda').manual_seed(seed + 11)
+    bf = torch.bfloat16
+    err = {'conv': 0.0, 'r_rel': 0.0, 'dz': 0.0, 'dx_dw_rel_l2': 0.0,
+           'grad_rel_l2': 0.0, 'gp_rel_l2': 0.0}
+    checked = []
+
+    def pair(fn, x, wp, ct_y, ct_r):
+        xr, wr = x.clone().requires_grad_(), wp.clone().requires_grad_()
+        y, r = fn(xr, wr)
+        dx, dw = torch.autograd.grad((y, r), (xr, wr), (ct_y, ct_r))
+        return y.detach(), r.detach(), dx, dw
+
+    def check(b, k, n, h, w):
+        x, wp = packed_case(torch, gen, b, k, n, h, w)
+        x = x.to(bf)
+        ct_y = torch.randn((b, n, h, w), generator=gen, device='cuda').to(bf)
+        ct_r = torch.randn((b, 4, h, w), generator=gen, device='cuda')
+        y, r, dx, dw = pair(lambda a, v: pcl.PackedConvLReluPN.apply(
+            a, v, 0.2, 1e-8), x, wp, ct_y, ct_r)
+        y0, r0, dx0, dw0 = pair(pcl.packed_conv_lrelu_pn_plain, x, wp, ct_y,
+                                ct_r)
+        dz = pcl._dz(y, r, ct_y, ct_r, 0.2)
+        dz0 = pcl.packed_dz_plain(y, r, ct_y, ct_r)
+        dx1, dw1, _ = torch.ops.aten.convolution_backward(
+            dz0, x, wp.to(bf), None, [1, 1], [1, 1], [1, 1], False, [0, 0],
+            1, [True, True, False])
+        torch.cuda.synchronize()
+        assert (y.dtype, r.dtype, dz.dtype, dx.dtype, dw.dtype) == (
+            bf, torch.float32, bf, bf, torch.float32)
+        err['conv'] = max(err['conv'], within_ulps(torch, y, y0))
+        r_rel = ((r - r0).abs() / r0.abs()).max().item()
+        assert r_rel <= BF16_TOL['r_rtol'], (b, k, n, h, w, r_rel)
+        err['r_rel'] = max(err['r_rel'], r_rel)
+        err['dz'] = max(err['dz'], within_ulps(torch, dz, dz0))
+        own = max(rel_l2([dx], [dx1]), rel_l2([dw], [dw1.float()]))
+        dist = max(rel_l2([dx], [dx0]), rel_l2([dw], [dw0]))
+        assert max(own, dist) <= BF16_TOL['grad_rel_l2'], (b, k, n, h, w,
+                                                          own, dist)
+        err['dx_dw_rel_l2'] = max(err['dx_dw_rel_l2'], own)
+        err['grad_rel_l2'] = max(err['grad_rel_l2'], dist)
+        checked.append({'x': [b, k, h, w], 'n': n, 'dtype': 'bfloat16'})
+
+    def gp_grads(fn, x, wp, c, s0):
+        s, w = s0.clone().requires_grad_(), wp.clone().requires_grad_()
+        xr = x.clone().requires_grad_()
+        y = fn((xr * s).to(bf), w)[0]
+        gx, = torch.autograd.grad((y.float() * c).sum(), xr, create_graph=True)
+        norms = torch.sqrt((gx ** 2).sum(dim=(1, 2, 3)))
+        return torch.autograd.grad(((norms - 1.0) ** 2).sum(), (s, w))
+
+    def check_gp(b, k, n, h, w):
+        x, wp = packed_case(torch, gen, b, k, n, h, w)
+        c = 0.1 * torch.randn((b, n, h, w), generator=gen, device='cuda')
+        s0 = 0.5 + torch.rand((1, k, 1, 1), generator=gen, device='cuda')
+        got = gp_grads(lambda a, v: pcl.PackedConvLReluPN.apply(
+            a, v, 0.2, 1e-8), x, wp, c, s0)
+        want = gp_grads(pcl.packed_conv_lrelu_pn_plain, x, wp, c, s0)
+        dist = max(rel_l2([a], [b_]) for a, b_ in zip(got, want))
+        assert dist <= BF16_TOL['gp_rel_l2'], (b, k, n, h, w, dist)
+        err['gp_rel_l2'] = max(err['gp_rel_l2'], dist)
+        checked.append({'gp_second_order': [b, k, h, w], 'n': n,
+                        'dtype': 'bfloat16'})
+
+    for n, side in PACKED_SHAPES:
+        check(8, n, n, side, side)
+    check(3, 20, 32, 5, 38)                  # ragged: K, H and W tails
+    check(2, 64, 16, 9, 34)                  # the narrowest width
+    for shape in ((2, 64, 64, 8, 8), (8, 128, 128, 32, 32),
+                  (8, 64, 64, 128, 128)):
+        check_gp(*shape)
+
+    # K3 and the plain version against float64 on the same bfloat16
+    # inputs (x and the weights as the kernel rounds them) at the largest
+    # site: K3's largest error, relative to the output's largest
+    # magnitude, at most 1.5x the plain bfloat16 version's
+    b, k, n, side = 8, 64, 64, 256
+    x, wp = packed_case(torch, gen, b, k, n, side, side)
+    x = x.to(bf)
+    y, r = pcl._conv_fwd(x, wp, 0.2, 1e-8)
+    y0, r0 = pcl.packed_conv_lrelu_pn_plain(x, wp)
+    y64, r64 = pcl.packed_conv_lrelu_pn_plain(x.double(),
+                                              wp.to(bf).double())
+
+    def rel_max(pair_):
+        return max(((a.double() - b_).abs().max() / b_.abs().max()).item()
+                   for a, b_ in zip(pair_, (y64, r64)))
+
+    vs64 = {'conv': rel_max((y, r)), 'plain': rel_max((y0, r0))}
+    assert vs64['conv'] <= 1.5 * vs64['plain'], vs64
+    del y64, r64
+
+    by_shape = []
+    for n_s, side_s in sorted(set(PACKED_SHAPES)):
+        xs, wps = packed_case(torch, gen, 8, n_s, n_s, side_s, side_s)
+        xs, wbs = xs.to(bf), wps.to(bf)
+        launch, _, _ = pcl.conv_fwd_launcher(xs, wps)
+        by_shape.append({
+            'x': [8, n_s, side_s, side_s], 'n': n_s,
+            'smem_bytes': pcl.conv_fwd_smem(n_s, bf),
+            'kernels_ms': cuda_ms(launch),
+            'wrapper_ms': cuda_ms(lambda: pcl._conv_fwd(xs, wps, 0.2, 1e-8)),
+            'plain_ms': cuda_ms(
+                lambda: pcl.packed_conv_lrelu_pn_plain(xs, wps)),
+            'library_ms': cuda_ms(lambda: torch.nn.functional.conv2d(
+                xs, wbs, padding=1))})
+    largest = by_shape[[e['x'] for e in by_shape].index([b, k, side, side])]
+    g = torch.randn(y.shape, generator=gen, device='cuda').to(bf)
+    ct_r = torch.randn(r.shape, generator=gen, device='cuda')
+    times = {
+        'conv_ms': largest['wrapper_ms'],
+        'conv_plain_ms': largest['plain_ms'],
+        'conv_library_ms': largest['library_ms'],
+        'dz_ms': cuda_ms(lambda: pcl._dz(y, r, g, ct_r, 0.2)),
+        'dz_plain_ms': cuda_ms(lambda: pcl.packed_dz_plain(y, r, g, ct_r)),
+    }
+    # least work: one bfloat16 product per multiply-add of the nonzero taps
+    # against the bytes (x and y in bfloat16, r and the weights float32)
+    pix = b * side * side
+    nonzero_macs = int(torch.count_nonzero(wp)) * pix
+    conv_bytes = 2 * pix * k + 4 * n * k * 9 + 2 * pix * n + 4 * pix * 4
+    conv_ops = 2 * nonzero_macs
+    dz_bytes = 2 * 3 * pix * n + 4 * 2 * pix * 4
+    dz_ops = 12 * pix * n
+
+    def bound(n_bytes, n_ops, ops_per_s):
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
+        return (max(t_bytes, t_ops) * 1e3,
+                'bytes' if t_bytes > t_ops else 'operations')
+
+    bounds = {'conv': bound(conv_bytes, conv_ops, BF16_OPS_PER_S),
+              'dz': bound(dz_bytes, dz_ops, F32_OPS_PER_S)}
+    return {'max_abs_err': err, 'checked': checked,
+            'rel_max_err_vs_float64': vs64,
+            'timed_x': [b, k, side, side], 'timed_n': n, **times,
+            'conv_by_shape': by_shape,
+            'bytes': {'conv': conv_bytes, 'dz': dz_bytes},
+            'flop': {'conv': conv_ops, 'dz': dz_ops},
+            'bound_ms': {key: v[0] for key, v in bounds.items()},
+            'bound_by': {key: v[1] for key, v in bounds.items()}}
+
+
 # ---------------------------------------------------------------------------
-# phase 4: the main paths
+# phase 4: the fused level boundaries against their decomposed chains
 # ---------------------------------------------------------------------------
 
+def boundary_cases(cfg):
+    """(name, input shape, weight (Co, Ci)) of every fused level boundary of
+    a 512^2 step of ``cfg`` at batch 8: G blocks whose convs run packed,
+    D blocks entered packed."""
+    from neuron_gan_tpu_torch.models.pggan import _want_packed
+    f_g, f_d, cases = cfg.n_gen_features, cfg.n_dis_features, []
+    for i in range(1, cfg.n_layers_max - 1):
+        if _want_packed(cfg, cfg.resolution(i + 1)):
+            r = cfg.resolution(i)
+            cases.append(('up2', (8, f_g[i], r, r), (f_g[i + 1], f_g[i])))
+    for i in range(cfg.n_layers_max - 1):
+        entry = cfg.image_size_max // 2 ** i
+        if _want_packed(cfg, entry):
+            m = entry // 2
+            name = 'pool2' if _want_packed(cfg, entry // 2) else 'pool2_unpacked'
+            cases.append((name, (8, 4 * f_d[i], m, m), (f_d[i + 1], f_d[i])))
+    return cases
+
+
+def check_boundaries(torch, seed, cfg):
+    """Each fused boundary (ops/packed.py) against its decomposed chain at
+    the path's shapes, float32 with TF32 off: forward elementwise (rtol
+    1e-4, atol 1e-5 of the output's scale), input and weight gradients by
+    relative L2 (at most 5e-5: sums reordered, the weight gradient's over
+    up to 2^19 products); and the bfloat16 times of both forms,
+    forward."""
+    from neuron_gan_tpu_torch.ops import equalized_conv2d, upsample2_bilinear
+    from neuron_gan_tpu_torch.ops import packed as pk
+    from neuron_gan_tpu_torch.runtime import precision_scope
+    gen = torch.Generator(device='cuda').manual_seed(seed + 13)
+    chains = {
+        'up2': (lambda x, w: pk.up2_equalized_conv3x3(x, w),
+                lambda x, w: pk.packed_equalized_conv3x3(
+                    pk.space_to_depth(upsample2_bilinear(x)), w)),
+        'pool2': (lambda x, w: pk.pool2_equalized_conv3x3(x, w),
+                  lambda x, w: pk.packed_equalized_conv3x3(
+                      pk.space_to_depth(pk.packed_avg_pool2(x)), w)),
+        'pool2_unpacked': (
+            lambda x, w: pk.pool2_unpacked_equalized_conv3x3(x, w),
+            lambda x, w: equalized_conv2d(pk.packed_avg_pool2(x), w,
+                                          padding=1)),
+    }
+    out = []
+    for name, xs, (co, ci) in boundary_cases(cfg):
+        fused, chain = chains[name]
+        x = torch.randn(xs, generator=gen, device='cuda')
+        w = torch.randn((co, ci, 3, 3), generator=gen, device='cuda')
+        res = []
+        with precision_scope('highest'):
+            for fn in (fused, chain):
+                xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+                y = fn(xr, wr)
+                ct = torch.randn(y.shape, generator=torch.Generator(
+                    device='cuda').manual_seed(seed), device='cuda')
+                res.append((y.detach(), *torch.autograd.grad(y, (xr, wr), ct)))
+        (y, dx, dw), (y0, dx0, dw0) = res
+        close = torch.allclose(y, y0, rtol=1e-4,
+                               atol=1e-5 * y0.abs().max().item())
+        grad = max(rel_l2([dx], [dx0]), rel_l2([dw], [dw0]))
+        xb = x.bfloat16()
+        with precision_scope(None):
+            ms = {'fused_bf16_ms': cuda_ms(lambda: fused(xb, w)),
+                  'decomposed_bf16_ms': cuda_ms(lambda: chain(xb, w))}
+        out.append({'boundary': name, 'x': list(xs), 'co': co,
+                    'close': close,
+                    'max_abs_err': (y - y0).abs().max().item(),
+                    'grad_rel_l2': grad, **ms})
+    result = {'phase': 'boundaries', 'cases': out}
+    assert all(c['close'] and c['grad_rel_l2'] <= 5e-5 for c in out), result
+    return result
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the main paths
+# ---------------------------------------------------------------------------
+
+def launch_key(dtype, n_groups=None):
+    """A launch counter's key as reported: 'float32' or 'bfloat16', and for
+    K1/K2 the grouping after a slash ('bfloat16/4')."""
+    return dtype if n_groups is None else f'{dtype}/{n_groups}'
+
+
 def expected_launches(cfg, phases_per_step):
-    """Kernel launches of batch steps of ``cfg`` at these phases, as
-    tests/test_torch_train_step.py counts them on the CPU.
+    """Kernel launches of batch steps of ``cfg`` at these phases, keyed by
+    ``launch_key``, as tests/test_torch_train_step.py counts them on the
+    CPU.
 
     Per step: G runs 3 forwards and 1 backward; D runs 4 forwards (real,
     fake, the GP's interpolate, the generator step) and 5 backwards (real,
@@ -387,36 +695,39 @@ def expected_launches(cfg, phases_per_step):
     at resolution(1..p) and D's at resolution(0..p-1); an unpacked block
     has two K1 epilogues, a packed one a K1 epilogue at 4 groups (conv1)
     and a K3 (conv2).  Each K1 forward has its K2 in a backward, each K3
-    its K4."""
+    its K4.  Every launch takes the blocks' dtype (cfg.dtype): the fused
+    level boundaries change no count."""
     from neuron_gan_tpu_torch.models.pggan import _want_packed
-    k1, k2 = collections.Counter(), collections.Counter()
-    k3 = k4 = 0
+    dt = str(cfg.dtype).removeprefix('torch.')
+    k1, k2, k3, k4 = (collections.Counter() for _ in range(4))
     for p in phases_per_step:
         g_pk = sum(_want_packed(cfg, cfg.resolution(i + 1)) for i in range(p))
         d_pk = sum(_want_packed(cfg, cfg.resolution(i)) for i in range(p))
         if cfg.use_kernels:
-            k1[1] += 3 * 2 * (p - g_pk) + 4 * 2 * (p - d_pk)
-            k2[1] += 1 * 2 * (p - g_pk) + 5 * 2 * (p - d_pk)
-            k1[4] += 3 * g_pk + 4 * d_pk
-            k2[4] += 1 * g_pk + 5 * d_pk
-            k3 += 3 * g_pk + 4 * d_pk
-            k4 += 1 * g_pk + 5 * d_pk
-    return {'k1': dict(+k1), 'k2': dict(+k2), 'k3': k3, 'k4': k4}
+            k1[launch_key(dt, 1)] += 3 * 2 * (p - g_pk) + 4 * 2 * (p - d_pk)
+            k2[launch_key(dt, 1)] += 1 * 2 * (p - g_pk) + 5 * 2 * (p - d_pk)
+            k1[launch_key(dt, 4)] += 3 * g_pk + 4 * d_pk
+            k2[launch_key(dt, 4)] += 1 * g_pk + 5 * d_pk
+            k3[dt] += 3 * g_pk + 4 * d_pk
+            k4[dt] += 1 * g_pk + 5 * d_pk
+    return {k: dict(+c) for k, c in
+            (('k1', k1), ('k2', k2), ('k3', k3), ('k4', k4))}
 
 
 def reset_counters():
     import neuron_gan_tpu_torch.ops.lrelu_pixel_norm as lpn
     import neuron_gan_tpu_torch.ops.packed_conv_lrelu_pn as pcl
-    lpn.fwd_launches.clear()
-    lpn.bwd_launches.clear()
-    pcl.conv_launches = pcl.dz_launches = 0
+    for counter in (lpn.fwd_launches, lpn.bwd_launches, pcl.conv_launches,
+                    pcl.dz_launches):
+        counter.clear()
 
 
 def read_counters():
     import neuron_gan_tpu_torch.ops.lrelu_pixel_norm as lpn
     import neuron_gan_tpu_torch.ops.packed_conv_lrelu_pn as pcl
-    return {'k1': dict(lpn.fwd_launches), 'k2': dict(lpn.bwd_launches),
-            'k3': pcl.conv_launches, 'k4': pcl.dz_launches}
+    return {'k1': {launch_key(*k): n for k, n in lpn.fwd_launches.items()},
+            'k2': {launch_key(*k): n for k, n in lpn.bwd_launches.items()},
+            'k3': dict(pcl.conv_launches), 'k4': dict(pcl.dz_launches)}
 
 
 def train(torch, seed, cfg, name):
@@ -491,16 +802,20 @@ def train(torch, seed, cfg, name):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: kernel path against the plain path on one 512^2 step
+# phase 6: kernel path against the plain path on one 512^2 step
 # ---------------------------------------------------------------------------
 
 # how far each network's gradient, as one vector, may lie from the plain
-# path's and from the float64 reference's (and, packed, from the plain
-# unpacked path's), by relative L2 error: about 3x the largest reading of
-# a run without a fault at 512^2 on an H100 (PERF.md): unpacked D 5.83e-4,
-# G 1.01e-3; packed D 5.87e-4, G 1.23e-3
+# path's and from the reference's (float32 paths: float64, and packed
+# also the plain unpacked path; mixed: the float32 plain packed path), by
+# relative L2 error: about 3x the largest reading of a run without a fault
+# at 512^2 on an H100 (PERF.md): unpacked D 5.83e-4, G 1.01e-3; packed D
+# 5.87e-4, G 1.23e-3; mixed (kernel~plain, bfloat16 rounding in both) D
+# 0.0248, G 0.171, where its faults read D 0.385 and 0.868 (they reach D
+# alone, through the GP)
 REL_L2_BOUND = {'unpacked': {'D': 2e-3, 'G': 3e-3},
-                'packed': {'D': 2e-3, 'G': 4e-3}}
+                'packed': {'D': 2e-3, 'G': 4e-3},
+                'mixed': {'D': 0.075, 'G': 0.5}}
 
 
 def _plain(cfg):
@@ -553,20 +868,22 @@ def _faults(torch, cfg):
 def parity(torch, seed, cfg_k, spec, raw, name='unpacked'):
     """Kernel path against plain path on one batch step (512^2 on the card).
 
-    Runs of the step on ``raw`` with the same parameters and draws, TF32
-    off: the kernel path; the plain path (composed ops); the plain path in
-    float64, the reference; for a packed config also the plain unpacked
-    path (packing is exact up to reordered sums); and the kernel path with
-    each of two planted faults (``_faults``).  The learning rate is 0, so
-    every run's generator gradients are taken against the same critic.
+    Runs of the step on ``raw`` with the same parameters and draws: the
+    kernel path; the plain path (composed ops); a reference; and the
+    kernel path with each of two planted faults (``_faults``).  For a
+    float32 path (TF32 off) the reference is the plain path in float64,
+    and for a packed one also the plain unpacked path (packing is exact up
+    to reordered sums); for the mixed path it is the float32 plain packed
+    path ('highest').  The learning rate is 0, so every run's generator
+    gradients are taken against the same critic.
 
     Held: each network's gradient within ``REL_L2_BOUND[name]`` of the
-    plain path and of float64 (and, packed, of the unpacked plain path);
-    the stats and G's gradients elementwise at rtol 1e-4 / atol 1e-5
-    against the plain path; each faulty run outside the bound.  D's
-    gradients are held only as one vector: at 512^2 a few hundred of their
-    elements move beyond the elementwise tolerance under a rounding change
-    in the epilogue (the counts are reported)."""
+    plain path and of each reference; for a float32 path the stats and G's
+    gradients elementwise at rtol 1e-4 / atol 1e-5 against the plain path;
+    each faulty run outside the bound.  D's gradients are held only as one
+    vector: at 512^2 a few hundred of their elements move beyond the
+    elementwise tolerance under a rounding change in the epilogue (the
+    counts are reported)."""
     from neuron_gan_tpu_torch.models import DiscriminatorPG, GeneratorPG
     from neuron_gan_tpu_torch.train_step import (
         draw_batch, init_train_state, make_batch_step)
@@ -592,10 +909,15 @@ def parity(torch, seed, cfg_k, spec, raw, name='unpacked'):
                 [p.grad.double() for p in state.g.parameters()],
                 stats.double())
 
-    runs = {'kernel': one_step(cfg_k), 'plain': one_step(cfg_p),
-            'float64': one_step(cfg_p, torch.float64)}
-    refs = ['plain', 'float64']
-    if cfg_k.packed_min_res is not None:
+    runs = {'kernel': one_step(cfg_k), 'plain': one_step(cfg_p)}
+    if cfg_k.compute_dtype != 'float32':
+        runs['float32'] = one_step(dataclasses.replace(
+            cfg_p, compute_dtype='float32', precision='highest'))
+        refs = ['plain', 'float32']
+    else:
+        runs['float64'] = one_step(cfg_p, torch.float64)
+        refs = ['plain', 'float64']
+    if cfg_k.packed_min_res is not None and cfg_k.compute_dtype == 'float32':
         runs['unpacked'] = one_step(dataclasses.replace(cfg_p,
                                                         packed_min_res=None))
         refs.append('unpacked')
@@ -640,10 +962,11 @@ def parity(torch, seed, cfg_k, spec, raw, name='unpacked'):
               if run not in faults and not within_bound(run)]
     failed += [f'planted fault {f} inside the bound' for f in faults
                if within_bound(f)]
-    if not torch.allclose(sk, sp, rtol=1e-4, atol=1e-5):
-        failed.append('stats differ')
-    if dist['kernel~plain']['G_outside_tol']:
-        failed.append("G's gradients differ elementwise")
+    if cfg_k.compute_dtype == 'float32':
+        if not torch.allclose(sk, sp, rtol=1e-4, atol=1e-5):
+            failed.append('stats differ')
+        if dist['kernel~plain']['G_outside_tol']:
+            failed.append("G's gradients differ elementwise")
     if failed:
         raise AssertionError(f'{failed}: {json.dumps(result)}')
     return result
@@ -660,7 +983,8 @@ def main():
               file=sys.stderr)
         return 2
     from neuron_gan_tpu_torch.flagship import (
-        flagship_chunk_spec, flagship_config, flagship_packed_config)
+        flagship_chunk_spec, flagship_config, flagship_mixed_config,
+        flagship_packed_config)
     from neuron_gan_tpu_torch.runtime import kernels
     import neuron_gan_tpu_torch.ops.lrelu_pixel_norm as lpn
     import neuron_gan_tpu_torch.ops.packed_conv_lrelu_pn as pcl
@@ -684,8 +1008,13 @@ def main():
     emit({'phase': 'kernels', 'pair': 'lrelu_pixel_norm', **epi})
     conv = check_packed_kernels(torch, pcl, args.seed)
     emit({'phase': 'kernels', 'pair': 'packed_conv_lrelu_pn', **conv})
+    conv16 = check_packed_kernels_bf16(torch, pcl, args.seed)
+    emit({'phase': 'kernels', 'pair': 'packed_conv_lrelu_pn',
+          'dtype': 'bfloat16', **conv16})
 
-    paths = {'unpacked': flagship_config(), 'packed': flagship_packed_config()}
+    paths = {'unpacked': flagship_config(), 'packed': flagship_packed_config(),
+             'mixed': flagship_mixed_config()}
+    emit(check_boundaries(torch, args.seed, paths['mixed']))
     trained = {}
     for name, cfg in paths.items():
         trained[name] = train(torch, args.seed, cfg, name)
@@ -696,47 +1025,58 @@ def main():
         emit(parity(torch, args.seed, cfg,
                     flagship_chunk_spec(cfg.n_phases - 1), raw, name))
 
-    # launches on this slice's path (the packed one, which runs every
-    # kernel), each path's count beside it; a kernel of a path that never
-    # launched on it fails
-    def total(n):
-        return sum(n.values()) if isinstance(n, dict) else n
+    # each kernel's launches by dtype on each path; a row's launches are
+    # those of the path that runs it in that dtype (float32: the packed
+    # path, which runs every kernel; bfloat16: the mixed path), and a
+    # kernel that never launched on a path that runs it fails
+    def total(counts, dtype):
+        return sum(n for k, n in counts.items() if k.split('/')[0] == dtype)
 
-    by_path = {key: {name: total(res['launches'][key])
-                     for name, res in trained.items()}
-               for key in ('k1', 'k2', 'k3', 'k4')}
+    by_path = {(key, dt): {name: total(res['launches'][key], dt)
+                           for name, res in trained.items()}
+               for key in ('k1', 'k2', 'k3', 'k4')
+               for dt in ('float32', 'bfloat16')}
     for key in ('k1', 'k2', 'k3', 'k4'):
-        assert by_path[key]['packed'] > 0, (key, by_path)
+        assert by_path[key, 'float32']['packed'] > 0, (key, by_path)
+        assert by_path[key, 'bfloat16']['mixed'] > 0, (key, by_path)
     for key in ('k1', 'k2'):
-        assert by_path[key]['unpacked'] > 0, (key, by_path)
+        assert by_path[key, 'float32']['unpacked'] > 0, (key, by_path)
 
-    def row(name, src, replaces, key, err, ms, plain_ms, bound_ms, bound_by,
-            library_ms):
-        return {'name': name, 'route': 'cuda',
+    def row(name, src, replaces, key, dtype, err, ms, plain_ms, bound_ms,
+            bound_by, library_ms):
+        counts = by_path[key, dtype]
+        return {'name': name, 'route': 'cuda', 'dtype': dtype,
                 'source': f'neuron_gan_tpu_torch/csrc/{src}.cu',
                 'replaces': f'neuron_gan_tpu/ops/{replaces}',
-                'launches': by_path[key]['packed'],
-                'launches_by_path': by_path[key], 'max_abs_err': err,
+                'launches': counts['packed' if dtype == 'float32' else 'mixed'],
+                'launches_by_path': counts, 'max_abs_err': err,
                 'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
                 'bound_by': bound_by, 'library_ms': library_ms}
 
-    e_err, c_err = epi['max_abs_err'], conv['max_abs_err']
-    emit({'kernels': [
-        row('lrelu_pixel_norm_fwd', 'lrelu_pixel_norm', 'pallas_kernels.py:65',
-            'k1', e_err['fwd'], epi['fwd_ms'], epi['fwd_plain_ms'],
-            epi['bound_ms']['fwd'], 'bytes', None),
-        row('lrelu_pixel_norm_bwd', 'lrelu_pixel_norm', 'pallas_kernels.py:78',
-            'k2', e_err['bwd'], epi['bwd_ms'], epi['bwd_plain_ms'],
-            epi['bound_ms']['bwd'], 'bytes', None),
-        row('packed_conv_lrelu_pn_fwd', 'packed_conv_lrelu_pn',
-            'pallas_conv.py:90', 'k3', max(c_err['conv'], c_err['r']),
-            conv['conv_ms'], conv['conv_plain_ms'], conv['bound_ms']['conv'],
-            conv['bound_by']['conv'], conv['conv_library_ms']),
-        row('packed_conv_lrelu_pn_dz', 'packed_conv_lrelu_pn',
-            'pallas_conv.py:119', 'k4', c_err['dz'], conv['dz_ms'],
-            conv['dz_plain_ms'], conv['bound_ms']['dz'],
-            conv['bound_by']['dz'], None),
-    ], 'seconds': round(time.perf_counter() - t_start, 1)})
+    rows = []
+    for dt, sfx, cv in (('float32', '', conv), ('bfloat16', '_bf16', conv16)):
+        e_err, c_err = epi['max_abs_err'], cv['max_abs_err']
+        k3_err = (max(c_err['conv'], c_err['r']) if dt == 'float32'
+                  else c_err['conv'])
+        rows += [
+            row('lrelu_pixel_norm_fwd', 'lrelu_pixel_norm',
+                'pallas_kernels.py:65', 'k1', dt, e_err['fwd' + sfx],
+                epi[f'fwd{sfx}_ms'], epi[f'fwd{sfx}_plain_ms'],
+                epi['bound_ms']['fwd' + sfx], 'bytes', None),
+            row('lrelu_pixel_norm_bwd', 'lrelu_pixel_norm',
+                'pallas_kernels.py:78', 'k2', dt, e_err['bwd' + sfx],
+                epi[f'bwd{sfx}_ms'], epi[f'bwd{sfx}_plain_ms'],
+                epi['bound_ms']['bwd' + sfx], 'bytes', None),
+            row('packed_conv_lrelu_pn_fwd', 'packed_conv_lrelu_pn',
+                'pallas_conv.py:90', 'k3', dt, k3_err, cv['conv_ms'],
+                cv['conv_plain_ms'], cv['bound_ms']['conv'],
+                cv['bound_by']['conv'], cv['conv_library_ms']),
+            row('packed_conv_lrelu_pn_dz', 'packed_conv_lrelu_pn',
+                'pallas_conv.py:119', 'k4', dt, c_err['dz'], cv['dz_ms'],
+                cv['dz_plain_ms'], cv['bound_ms']['dz'],
+                cv['bound_by']['dz'], None),
+        ]
+    emit({'kernels': rows, 'seconds': round(time.perf_counter() - t_start, 1)})
     print(smi, flush=True)
     emit({'ok': True, 'device': {'platform': 'gpu',
                                  'kind': torch.cuda.get_device_name(0),

@@ -5,8 +5,8 @@ neuron_gan_tpu/flagship.py): 6 levels from 16^2 to 512^2, G features
 (128, 64, 32, 32, 16, 16), D features (16, 16, 32, 32, 64, 128), latent 64,
 batch 8, n_critic 1, lambda_gp 10, drift 1e-3, Adam beta1 0.5, lr 1e-4.
 
-Two executions of that geometry, both float32 with TF32 off (precision
-'highest') and the reference-exact augmentation:
+Three executions of that geometry, all with the reference-exact
+augmentation; the first two float32 with TF32 off (precision 'highest'):
 
 * ``flagship_config``: the unpacked layout, the CUDA LeakyReLU + PixelNorm
   kernel pair in every G/D block;
@@ -15,12 +15,17 @@ Two executions of that geometry, both float32 with TF32 off (precision
   kernel pair after each packed conv1 at 4 groups and in the unpacked
   blocks, and the fused packed conv kernel pair on each packed conv2 --
   every kernel the JAX package has.  The level boundaries are the
-  decomposed ones, which the JAX package's auto rule picks at 'highest'.
+  decomposed ones, which the JAX package's auto rule picks at 'highest';
+* ``flagship_mixed_config``: the JAX package's shipping numerics on the
+  packed layout -- ``compute_dtype='mixed'`` at ``precision=None`` (TF32
+  allowed, bfloat16 activations through the blocks), so the level
+  boundaries are fused, and every kernel runs in bfloat16.  It is the JAX
+  ``flagship_config(packed_lanes=None)``.
 
-The JAX package's other shipping defaults ('mixed' precision, the 2x4
-layout, the fast/shear augmentation) are later slices of the port
-(ROADMAP A5, A6, A11).  Neither configuration is a default anywhere until
-the card has measured it (ROADMAP B5).
+The JAX package's other shipping defaults (the 2x4 layout, the fast/shear
+augmentation) are later slices of the port (ROADMAP A6, A11).  No
+configuration is a default anywhere until the card has measured it
+(ROADMAP B5).
 """
 
 from neuron_gan_tpu_torch.models import PGConfig
@@ -40,6 +45,11 @@ def flagship_config(**overrides):
 
 def flagship_packed_config(**overrides):
     return flagship_config(**{'packed_min_res': 64, **overrides})
+
+
+def flagship_mixed_config(**overrides):
+    return flagship_packed_config(**{'compute_dtype': 'mixed',
+                                     'precision': None, **overrides})
 
 
 def flagship_chunk_spec(phase, fading=False, **overrides):

@@ -5,7 +5,8 @@
 Builds variants of csrc/packed_conv_lrelu_pn.cu that each change one
 design choice of the committed source (a substituted constant or line),
 all nvcc processes at once.  Then, at every distinct packed conv2 shape of
-the packed flagship path (batch 8, float32, TF32 off), it times each
+the packed flagship path (batch 8, float32, TF32 off; the float32
+kernel's choices), it times each
 build's two forward kernels (the weight split and the conv) by CUDA events
 and holds each build's (y, r) against the plain version at the smoke's
 tolerance; at the largest shape it also gives each build's largest error
@@ -48,14 +49,15 @@ _TF32_CVT = '''__device__ __forceinline__ float tf32(float v) {
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(t) : "f"(v));
   return __uint_as_float(t);
 }'''
-_FRESH = ('            float d[4];\n', '            float (&d)[4] = acc[g][nt];\n')
-_ZERO = ('''              if (ks == 0)
-                mma_tf32_zero(d, lo[ks], f2u(bw.x), f2u(bw.y));
-              else
-                mma_tf32(d, lo[ks], f2u(bw.x), f2u(bw.y));''',
-         '''              mma_tf32(d, lo[ks], f2u(bw.x), f2u(bw.y));''')
+_FRESH = ('              float d[4];\n',
+          '              float (&d)[4] = acc[g][nt];\n')
+_ZERO = ('''                if (ks == 0)
+                  mma_tf32_zero(d, lo[ks], f2u(bw.x), f2u(bw.y));
+                else
+                  mma_tf32(d, lo[ks], f2u(bw.x), f2u(bw.y));''',
+         '''                mma_tf32(d, lo[ks], f2u(bw.x), f2u(bw.y));''')
 _FOLD = ('''#pragma unroll
-            for (int i = 0; i < 4; ++i) acc[g][nt][i] += d[i];
+              for (int i = 0; i < 4; ++i) acc[g][nt][i] += d[i];
 ''', '')
 
 VARIANTS = {
@@ -99,10 +101,11 @@ def build_variants():
                        if 'registers' in ln or 'spill' in ln]
         lib = ctypes.CDLL(str(out_dir / f'{name}.so'))
         ptr, i64, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
+        i32 = ctypes.c_int
         lib.packed_conv_lrelu_pn_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i64,
                                                  i64, i64, i64, i64, f32, f32,
-                                                 ptr]
-        lib.packed_conv_lrelu_pn_fwd_scratch.argtypes = [i64, i64]
+                                                 i32, ptr]
+        lib.packed_conv_lrelu_pn_fwd_scratch.argtypes = [i64, i64, i32]
         lib.packed_conv_lrelu_pn_fwd_scratch.restype = i64
         libs[name] = lib
     return libs, ptxas
@@ -143,7 +146,7 @@ def main():
                      if side == max(s for _, s in SHAPES) else None)
             row = {'x': [8, n, side, side], 'n': n, 'ms': {}, 'ok': {}}
             for name, lib in libs.items():
-                scratch = torch.empty(lib.packed_conv_lrelu_pn_fwd_scratch(n, n),
+                scratch = torch.empty(lib.packed_conv_lrelu_pn_fwd_scratch(n, n, 0),
                                       device='cuda')
                 y, r = torch.empty_like(y0), torch.empty_like(r0)
                 stream = torch.cuda.current_stream().cuda_stream
@@ -152,7 +155,7 @@ def main():
                     rc = lib.packed_conv_lrelu_pn_fwd(
                         x.data_ptr(), wc.data_ptr(), scratch.data_ptr(),
                         y.data_ptr(), r.data_ptr(), 8, n, n, side, side, 0.2,
-                        1e-8, stream)
+                        1e-8, 0, stream)
                     if rc:
                         raise RuntimeError(f'{name}: CUDA error {rc}')
 

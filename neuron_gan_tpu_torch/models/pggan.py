@@ -1,7 +1,7 @@
 """Progressively-growing GAN (PGGAN) as PyTorch modules, NCHW.
 
-Counterpart of neuron_gan_tpu/models/pggan.py in float32, unpacked or in
-the 2x2 packed layout.  As there, the parameters of every phase exist from
+Counterpart of neuron_gan_tpu/models/pggan.py, unpacked or in the 2x2
+packed layout, in float32, 'mixed' or bfloat16.  As there, the parameters of every phase exist from
 the start and the forward takes ``(phase, alpha)``: ``alpha=None`` is the
 steady state, a float the fade-in blend (reference models.py:344-351 for
 G, :516-524 for D).  Parameter names follow the JAX pytree paths
@@ -25,12 +25,19 @@ the stem and the head keep the composed ops, as there.
 
 With ``packed_min_res`` the blocks whose convs run at that resolution or
 above run in the 2x2 space-to-depth layout (ops/packed.py; the JAX
-package's ``_gen_block_any`` / ``_dis_block_any`` with their decomposed
-level boundaries).  There ``use_kernels`` also puts the LReLU + 4-group
-PixelNorm after each conv1 in the same kernel pair, and runs each conv2
-with its epilogue in the fused packed conv kernel pair
-(ops/packed_conv_lrelu_pn.py) -- what ``pallas_epilogue`` and
-``pallas_conv`` do in the JAX package.
+package's ``_gen_block_any`` / ``_dis_block_any``).  Their level
+boundaries are fused into one conv each when ``fused_up2`` /
+``fused_pool`` (the default at ``precision=None``), else decomposed.
+There ``use_kernels`` also puts the LReLU + 4-group PixelNorm after each
+conv1 in the same kernel pair, and runs each conv2 with its epilogue in
+the fused packed conv kernel pair (ops/packed_conv_lrelu_pn.py) -- what
+``pallas_epilogue`` and ``pallas_conv`` do in the JAX package.
+
+``compute_dtype`` sets the activations' dtype (``PGConfig.dtype``); the
+parameters stay float32 and every conv casts its weight to the
+activation's dtype, as the JAX package does.  Under 'mixed' the stem, the
+to_rgb image and the critic head run in float32 and the composed
+PixelNorms keep float32 statistics.
 """
 
 from __future__ import annotations
@@ -63,9 +70,12 @@ class PGConfig:
     image_size_init: int = 4
     n_colors: int = 1
     neg_slope: float = 0.2
-    # only 'float32' so far; 'mixed' and 'bfloat16' are ROADMAP A5
+    # 'float32'; 'mixed': bfloat16 activations through the blocks, float32
+    # in the stem, the PixelNorm statistics, the to_rgb image and the
+    # critic head; 'bfloat16': everything half width.  Parameters and
+    # optimizer state stay float32 in every mode.
     compute_dtype: str = 'float32'
-    # 'highest' runs convs and matmuls in true float32 (TF32 off);
+    # 'highest' runs float32 convs and matmuls in true float32 (TF32 off);
     # None allows TF32 -- see precision_scope
     precision: Optional[str] = 'highest'
     # every block's LReLU + PixelNorm in the CUDA kernel pairs: unpacked
@@ -74,36 +84,58 @@ class PGConfig:
     # fused with its conv (pallas_conv).  The JAX pallas_conv gate also
     # needs precision=None, because its MXU dot runs at default (bf16
     # pass) precision; the fused conv kernel accumulates in true float32,
-    # so here it runs at 'highest' too.
+    # so here it runs at 'highest' too.  Under 'mixed' the unpacked blocks
+    # keep the kernel pair, where the JAX package falls back to its
+    # composed f32-stats epilogue: both compute lrelu -> PixelNorm with
+    # float32 statistics, up to one bfloat16 rounding (of the lrelu).
     use_kernels: bool = False
     # blocks whose convs run at this resolution or above run in the 2x2
-    # space-to-depth packed layout (ops/packed.py); None disables.  Only
-    # the decomposed level boundaries are ported: precision=None, where
-    # the JAX package fuses them, raises (ROADMAP A11), as does its 2x4
-    # layout, which has no field here.
+    # space-to-depth packed layout (ops/packed.py); None disables.  The
+    # JAX package's 2x4 layout has no field here (not ported).
     packed_min_res: Optional[int] = None
+    # the packed level boundaries fused into one conv each
+    # (ops/packed.py::up2_equalized_conv3x3, pool2_*): None = fused iff
+    # precision is None, as in the JAX package
+    fuse_up2_conv: Optional[bool] = None
+    fuse_pool_conv: Optional[bool] = None
 
     def __post_init__(self):
         object.__setattr__(self, 'n_gen_features', tuple(self.n_gen_features))
         object.__setattr__(self, 'n_dis_features', tuple(self.n_dis_features))
         if len(self.n_gen_features) != len(self.n_dis_features):
             raise ValueError('G and D need the same number of levels')
-        if self.compute_dtype != 'float32':
-            raise NotImplementedError(
-                f"compute_dtype={self.compute_dtype!r} is not ported yet "
-                "(ROADMAP A5); use 'float32'")
+        if self.compute_dtype not in ('float32', 'mixed', 'bfloat16'):
+            raise ValueError(f"compute_dtype must be 'float32', 'mixed' or "
+                             f"'bfloat16', got {self.compute_dtype!r}")
         if self.precision not in ('highest', None):
             raise ValueError(f"precision must be 'highest' or None, got "
                              f'{self.precision!r}')
-        if self.packed_min_res is None:
-            return
-        if self.packed_min_res <= self.image_size_init:
+        if (self.packed_min_res is not None
+                and self.packed_min_res <= self.image_size_init):
             raise ValueError('packed_min_res must exceed the stem/head '
                              'resolution (image_size_init)')
-        if self.precision is None:
-            raise NotImplementedError(
-                'packed_min_res with precision=None: the fused packed level '
-                'boundaries are not ported yet (ROADMAP A11)')
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The activations' dtype through the blocks."""
+        return torch.float32 if self.compute_dtype == 'float32' \
+            else torch.bfloat16
+
+    @property
+    def mixed(self) -> bool:
+        return self.compute_dtype == 'mixed'
+
+    @property
+    def fused_up2(self) -> bool:
+        if self.fuse_up2_conv is None:
+            return self.precision is None
+        return self.fuse_up2_conv
+
+    @property
+    def fused_pool(self) -> bool:
+        if self.fuse_pool_conv is None:
+            return self.precision is None
+        return self.fuse_pool_conv
 
     @property
     def n_layers_max(self) -> int:
@@ -177,10 +209,14 @@ def _block_pair(f_in, f_out, cfg, rng, device):
 
 def _epilogue(x, cfg: PGConfig):
     """The LReLU -> PixelNorm after every unpacked block conv: the CUDA
-    kernel pair when cfg.use_kernels, the composed ops otherwise."""
+    kernel pair when cfg.use_kernels, the composed ops otherwise.  Under
+    'mixed' the JAX package takes its composed f32-stats epilogue here
+    even with its kernels on; the kernel pair computes the same function
+    (float32 statistics in every mode) up to one bfloat16 rounding: it
+    keeps the LeakyReLU in float32."""
     if cfg.use_kernels:
         return fused_lrelu_pixel_norm(x, 1, cfg.neg_slope, 1e-8)
-    return pixel_norm(leaky_relu(x, cfg.neg_slope))
+    return pixel_norm(leaky_relu(x, cfg.neg_slope), f32_stats=cfg.mixed)
 
 
 def _want_packed(cfg: PGConfig, res: int) -> bool:
@@ -192,7 +228,8 @@ def _packed_epilogue(x, cfg: PGConfig):
     pair at n_groups=4 when cfg.use_kernels, the composed ops otherwise."""
     if cfg.use_kernels:
         return fused_lrelu_pixel_norm(x, 4, cfg.neg_slope, 1e-8)
-    return pk.packed_pixel_norm(leaky_relu(x, cfg.neg_slope))
+    return pk.packed_pixel_norm(leaky_relu(x, cfg.neg_slope),
+                                f32_stats=cfg.mixed)
 
 
 def _packed_conv_epilogue(x, conv: Conv, cfg: PGConfig):
@@ -256,24 +293,41 @@ class GeneratorPG(nn.Module):
             x = upsample2_bilinear(x)
             x = _epilogue(p['conv1'](x), cfg)
             return _epilogue(p['conv2'](x), cfg), False
-        if packed_in:
-            x = pk.packed_upsample2_bilinear(x)
+        c1 = p['conv1']
+        if cfg.fused_up2 and c1.bias is None:
+            # upsample + conv1 as one conv (JAX: 4x fewer MACs, no
+            # interleave; sums reordered against the decomposed ops)
+            if packed_in:
+                x = pk.depth_to_space(x)
+            x = pk.up2_equalized_conv3x3(x, c1.weight,
+                                         neg_slope=cfg.neg_slope)
         else:
-            x = pk.space_to_depth(upsample2_bilinear(x))
-        x = pk.packed_equalized_conv3x3(x, p['conv1'].weight, p['conv1'].bias,
-                                        neg_slope=cfg.neg_slope)
+            if packed_in:
+                x = pk.packed_upsample2_bilinear(x)
+            else:
+                x = pk.space_to_depth(upsample2_bilinear(x))
+            x = pk.packed_equalized_conv3x3(x, c1.weight, c1.bias,
+                                            neg_slope=cfg.neg_slope)
         x = _packed_epilogue(x, cfg)
         return _packed_conv_epilogue(x, p['conv2'], cfg), True
 
     def _to_rgb(self, x, packed: bool, i: int):
-        if not packed:
-            return torch.tanh(self.to_rgb[i](x))
-        y = pk.packed_conv1x1(x, self.to_rgb[i].weight, self.to_rgb[i].bias)
-        return pk.depth_to_space(torch.tanh(y))
+        conv = self.to_rgb[i]
+        y = pk.packed_conv1x1(x, conv.weight, conv.bias) if packed else conv(x)
+        if self.cfg.mixed:
+            y = y.float()       # the image leaves G in float32
+        y = torch.tanh(y)
+        return pk.depth_to_space(y) if packed else y
 
     def forward(self, z, phase: int, alpha=None):
         """z (B, latent) -> image (B, C, R, R), R = init * 2**phase."""
-        x, packed = self._stem(z), False
+        cfg = self.cfg
+        if cfg.mixed:
+            # float32 stem (init-resolution tensors), bfloat16 blocks
+            x = self._stem(z.float()).to(cfg.dtype)
+        else:
+            x = self._stem(z.to(cfg.dtype))
+        packed = False
         if alpha is None:
             for i in range(phase):
                 x, packed = self._block(x, packed, i)
@@ -323,25 +377,35 @@ class DiscriminatorPG(nn.Module):
         """Block i: pool to entry_res/2, then two convs there; returns
         (y, packed_out), packed iff entry_res/2 >= packed_min_res."""
         p, cfg = self.blocks[i], self.cfg
+        c1 = p['conv1']
         packed_out = _want_packed(cfg, entry_res // 2)
-        y = pk.packed_avg_pool2(y) if packed_in else avg_pool(y, 2)
+        if packed_in and cfg.fused_pool:
+            # avg-pool (+ repack) + conv1 as one conv
+            fused = (pk.pool2_equalized_conv3x3 if packed_out
+                     else pk.pool2_unpacked_equalized_conv3x3)
+            y = fused(y, c1.weight, c1.bias, neg_slope=cfg.neg_slope)
+        else:
+            y = pk.packed_avg_pool2(y) if packed_in else avg_pool(y, 2)
+            y = (pk.packed_equalized_conv3x3(pk.space_to_depth(y), c1.weight,
+                                             c1.bias, neg_slope=cfg.neg_slope)
+                 if packed_out else c1(y))
         if not packed_out:
-            y = _epilogue(p['conv1'](y), cfg)
+            y = _epilogue(y, cfg)
             return _epilogue(p['conv2'](y), cfg), False
-        y = pk.packed_equalized_conv3x3(pk.space_to_depth(y),
-                                        p['conv1'].weight, p['conv1'].bias,
-                                        neg_slope=cfg.neg_slope)
         y = _packed_epilogue(y, cfg)
         return _packed_conv_epilogue(y, p['conv2'], cfg), True
 
     def _head(self, y):
         s = self.cfg.neg_slope
+        if self.cfg.mixed:
+            y = y.float()       # float32 head: full-precision scores
         y = pixel_norm(leaky_relu(self.head['conv'](y), s))
         y = self.head['conv_out'](y)
         return y.reshape(y.shape[0], -1)
 
     def forward(self, x, phase: int, alpha=None):
         """x (B, C, R, R) -> critic score (B, 1)."""
+        x = x.to(self.cfg.dtype)
         L = self.cfg.n_layers_max
         res = self.cfg.resolution(phase)
         if alpha is None:

@@ -57,8 +57,9 @@ def init_linear(d_in, d_out, *, generator, neg_slope=0.2, device=None,
 
 def conv2d(x, weight, bias=None, *, padding=0):
     """Plain NCHW conv (to_rgb / from_rgb carry no runtime scale --
-    reference models.py:133-168)."""
-    return F.conv2d(x, weight.to(x.dtype), bias, padding=padding)
+    reference models.py:133-168); weight and bias cast to ``x.dtype``."""
+    b = None if bias is None else bias.to(x.dtype)
+    return F.conv2d(x, weight.to(x.dtype), b, padding=padding)
 
 
 def equalized_conv2d(x, weight, bias=None, *, padding=0, neg_slope=0.2,
@@ -75,4 +76,5 @@ def equalized_linear(x, weight, bias=None, *, neg_slope=0.2,
     """Linear with the equalized-LR scale on the (out, in) weight."""
     scale = (calculate_gain(gain_nonlinearity, neg_slope)
              / math.sqrt(weight.shape[1]))
-    return F.linear(x, (weight * scale).to(x.dtype), bias)
+    b = None if bias is None else bias.to(x.dtype)
+    return F.linear(x, (weight * scale).to(x.dtype), b)

@@ -10,8 +10,8 @@ Statistics in float32; output in ``x.dtype`` (float32 or bfloat16).
 
 Bound: bytes, not operations.  At the largest shape of the training path,
 (8, 16, 512, 512) float32, the forward moves 268 MB (about 80 us at the
-H100's 3.35 TB/s) and the backward 403 MB (about 120 us); the measured
-times are in PERF.md.
+H100's 3.35 TB/s) and the backward 403 MB (about 120 us); in bfloat16
+half of that.  The measured times are in PERF.md.
 
 Gradients mirror the JAX package's two custom VJPs:
 
@@ -25,8 +25,8 @@ Gradients mirror the JAX package's two custom VJPs:
 The same two Functions run on both devices; only the innermost launch
 differs.  A CPU tensor takes the plain version; a CUDA tensor launches the
 kernel, or raises if the kernel cannot take it -- never a silent fall back.
-``fwd_launches`` and ``bwd_launches`` count kernel launches by
-``n_groups``, and nothing else.
+``fwd_launches`` and ``bwd_launches`` count kernel launches by (dtype
+name, ``n_groups``), and nothing else.
 """
 
 import collections
@@ -114,6 +114,11 @@ def _lib():
     return lib
 
 
+def dtype_name(t):
+    """'float32' or 'bfloat16': the launch counters' key for ``t``."""
+    return str(t.dtype).removeprefix('torch.')
+
+
 def _check_device(x):
     if x.device.type != 'cuda':
         raise RuntimeError(f'lrelu_pixel_norm has no kernel for device '
@@ -137,7 +142,7 @@ def _fwd(x, n_groups, neg_slope, eps):
             x.data_ptr(), out.data_ptr(), *shape, neg_slope, eps,
             _DTYPE_CODES[x.dtype], stream)
     _raise_on(rc, 'lrelu_pixel_norm forward')
-    fwd_launches[n_groups] += 1
+    fwd_launches[dtype_name(x), n_groups] += 1
     return out
 
 
@@ -153,7 +158,7 @@ def _bwd(x, g, n_groups, neg_slope, eps):
             x.data_ptr(), g.data_ptr(), dx.data_ptr(), *shape, neg_slope,
             eps, _DTYPE_CODES[x.dtype], stream)
     _raise_on(rc, 'lrelu_pixel_norm backward')
-    bwd_launches[n_groups] += 1
+    bwd_launches[dtype_name(x), n_groups] += 1
     return dx
 
 

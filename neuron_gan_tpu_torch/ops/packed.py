@@ -1,17 +1,25 @@
 """The 2x2 space-to-depth packed layout, NCHW.
 
 Counterpart of the 2x2 part of neuron_gan_tpu/ops/packed.py (kept as a
-copy: that module imports jax).  A packed tensor is (B, 4C, H/2, W/2): the
-2x2 pixel block at (2p+a, 2q+b) moves into channels, with packed channel
-index ``(a*2 + b) * C + i`` (parity-major, original channel minor) -- the
-JAX package's channel order, so a grouped PixelNorm with 4 groups
-normalizes each parity's C channels, as the unpacked PixelNorm does.
+copy: that module imports jax), with its fused level boundaries.  A packed
+tensor is (B, 4C, H/2, W/2): the 2x2 pixel block at (2p+a, 2q+b) moves
+into channels, with packed channel index ``(a*2 + b) * C + i``
+(parity-major, original channel minor) -- the JAX package's channel
+order, so a grouped PixelNorm with 4 groups normalizes each parity's C
+channels, as the unpacked PixelNorm does.
 
 The transform is exact: a stride-1 zero-padded 3x3 conv on the original
 grid equals a 3x3 conv on the packed grid with a scattered kernel
 (``pack_conv3x3_weight``; derivation in the JAX module).  Parameters stay
 in the original OIHW layout; the scatter is differentiable, so gradients
 land on the original weights.
+
+The fused level boundaries compose a resampling and the first conv of a
+block into one conv (derivations in the JAX module): G's upsample + conv
+(``up2_equalized_conv3x3``), D's avg-pool + repack + conv
+(``pool2_equalized_conv3x3``) and avg-pool + conv where D leaves the packed
+layout (``pool2_unpacked_equalized_conv3x3``).  Each computes its
+decomposed chain's function with the sums in another order.
 """
 
 import functools
@@ -19,6 +27,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from neuron_gan_tpu_torch.ops.equalized import calculate_gain
 from neuron_gan_tpu_torch.ops.pixelnorm import pixel_norm
@@ -56,14 +65,40 @@ def _pack_transfer_tensor():
     return t
 
 
-_PACK_T = _pack_transfer_tensor()
+def _up2_taps():
+    """T[p, ty, dy + 1]: the upsampled row 2J + p + ty - 1 as taps on input
+    rows J + dy (the fused upsample + conv, below; composed over both
+    axes in _CONSTS)."""
+    t = np.zeros((2, 3, 3), np.float32)
+    t[0, 0, :2] = 0.75, 0.25
+    t[0, 1, :2] = 0.25, 0.75
+    t[0, 2, 1:] = 0.75, 0.25
+    t[1, 0, :2] = 0.25, 0.75
+    t[1, 1, 1:] = 0.75, 0.25
+    t[1, 2, 1:] = 0.25, 0.75
+    return t
+
+
+def _pool_taps():
+    """T[ty, a, dy] = 1 where ty = a + dy (the fused pool + conv, below;
+    composed over both axes in _CONSTS)."""
+    t = np.zeros((4, 2, 3), np.float32)
+    for a in (0, 1):
+        for d in (0, 1, 2):
+            t[a + d, a, d] = 1.0
+    return t
+
+
+_CONSTS = {'pack': _pack_transfer_tensor(),
+           'up2': np.einsum('ptd,qse->pqdets', _up2_taps(), _up2_taps()),
+           'pool': np.einsum('pad,qbe->padqbe', _pool_taps(), _pool_taps())}
 
 
 @functools.lru_cache(maxsize=None)
-def _pack_t(dtype, device):
+def _const(name, dtype, device):
     # cached per device: a host-to-device copy in every step would make
     # the host wait for the device
-    return torch.tensor(_PACK_T, dtype=dtype, device=device)
+    return torch.tensor(_CONSTS[name], dtype=dtype, device=device)
 
 
 def pack_conv3x3_weight(w, scale=1.0):
@@ -82,7 +117,7 @@ def pack_conv3x3_weight(w, scale=1.0):
                          f'{kh}x{kw}')
     with precision_scope('highest'):
         out = torch.einsum('PQcdabts,oits->abocdiPQ',
-                           _pack_t(w.dtype, w.device), w * scale)
+                           _const('pack', w.dtype, w.device), w * scale)
     return out.reshape(4 * co, 4 * ci, 3, 3)
 
 
@@ -106,10 +141,20 @@ def packed_equalized_conv3x3(x_packed, weight, bias=None, *, neg_slope=0.2):
 def packed_pixel_norm(x_packed, eps=1e-8, f32_stats=False):
     """PixelNorm over the ORIGINAL channels: each parity group's C channels
     normalized on their own (the JAX package's packed_pixel_norm and
-    packed_pixel_norm_mxu compute this same function)."""
+    packed_pixel_norm_mxu compute this same function).
+
+    bfloat16 with ``f32_stats`` rounds where the JAX package's fast path
+    (packed_pixel_norm_mxu) does: x^2 in bfloat16 (its MXU operand), the
+    group sums in float32, the scale rounded to bfloat16, then one
+    bfloat16 product."""
     b, c4, h, w = x_packed.shape
     xg = x_packed.reshape(b * 4, c4 // 4, h, w)
-    return pixel_norm(xg, eps, f32_stats=f32_stats).reshape(b, c4, h, w)
+    if f32_stats and x_packed.dtype == torch.bfloat16:
+        m = torch.mean((xg * xg).float(), dim=1, keepdim=True)
+        out = xg * torch.rsqrt(m + eps).to(xg.dtype)
+    else:
+        out = pixel_norm(xg, eps, f32_stats=f32_stats)
+    return out.reshape(b, c4, h, w)
 
 
 def packed_conv1x1(x_packed, weight, bias=None):
@@ -126,7 +171,8 @@ def packed_conv1x1(x_packed, weight, bias=None):
 def packed_avg_pool2(x_packed):
     """2x2 average pooling of the original image == the mean over the 4
     parity groups at each packed pixel.  The output is UNPACKED at half
-    the original resolution."""
+    the original resolution.  A bfloat16 mean sums in float32 and rounds
+    once, as the JAX package's packed_avg_pool2_mxu does."""
     b, c4, h, w = x_packed.shape
     return x_packed.reshape(b, 4, c4 // 4, h, w).mean(dim=1)
 
@@ -135,3 +181,109 @@ def packed_upsample2_bilinear(x_packed):
     """x2 bilinear upsample in the packed domain: packed rep of res R in,
     packed rep of res 2R out (unpack, upsample, repack; exact)."""
     return space_to_depth(upsample2_bilinear(depth_to_space(x_packed)))
+
+
+# --------------------------------------------------------------------------
+# Fused upsample + conv: s2d(conv3x3(zeropad(up2(x)))) as ONE 3x3 conv
+# --------------------------------------------------------------------------
+#
+# Each output parity p of upsample-then-conv reads input rows J + dy,
+# dy in {-1, 0, 1}, through the 2-tap upsample (coefficients _up2_taps),
+# so the chain is one 3x3 conv from Ci to 4Co channels (parity-major) on
+# the edge-padded input -- except where the conv's zero padding of the
+# upsampled frame applies: the first and last output row and column, four
+# one-pixel bands recomputed exactly and written over the fused result.
+
+def fuse_up2_conv3x3_weight(w, scale=1.0):
+    """OIHW (Co, Ci, 3, 3) kernel -> the fused upsample + conv kernel
+    (4Co, Ci, 3, 3), output channels (p, q, o)."""
+    co, ci = w.shape[:2]
+    with precision_scope('highest'):   # the tap composition in float32
+        wf = torch.einsum('pqdets,oits->pqoide',
+                          _const('up2', w.dtype, w.device), w * scale)
+    return wf.reshape(4 * co, ci, 3, 3)
+
+
+def _up2_border(x, w_s, dim):
+    """The decomposed chain's first and last output row (``dim`` 2) or
+    column (3), exactly: the upsampled frame's two outer lines at each
+    border come from the input's two outer lines (one upsample of them,
+    stacked), and a padding-1 conv of those four lines gives both border
+    lines with the conv's zero padding beyond them.  Returns the two as
+    (B, Co, 2n) each."""
+    n = x.shape[dim]
+    u = upsample2_bilinear(torch.cat([x.narrow(dim, 0, 2),
+                                      x.narrow(dim, n - 2, 2)], dim))
+    # lines 0, 1 of u are the frame's 0, 1 and lines 6, 7 its 2n-2, 2n-1
+    # (lines 2..5 mix the two ends and are never read by lines 0 and 7)
+    z = F.conv2d(u, w_s.to(x.dtype), padding=1)
+    return z.select(dim, 0), z.select(dim, 7)
+
+
+def up2_equalized_conv3x3(x, weight, *, neg_slope=0.2):
+    """s2d(conv3x3_zero-pad(upsample2_bilinear(x))) * eq_scale as one conv.
+
+    ``x`` is UNPACKED (B, Ci, n, n), n >= 2; the output is the packed rep
+    of resolution 2n, (B, 4Co, n, n).  ``weight`` is the original bias-free
+    (Co, Ci, 3, 3) kernel."""
+    b, _, n, n2 = x.shape
+    if n != n2 or n < 2:
+        raise ValueError(f'fused up2-conv needs a square input of side >= '
+                         f'2, got {tuple(x.shape)}')
+    scale = _eq_scale3x3(weight, neg_slope)
+    co = weight.shape[0]
+    y = F.conv2d(F.pad(x, (1, 1, 1, 1), mode='replicate'),
+                 fuse_up2_conv3x3_weight(weight, scale).to(x.dtype))
+    w_s = weight * scale
+    # an output line (B, Co, 2n) of the original grid as its two parities
+    # (B, 2, Co, n): position 2K + q -> parity q at K
+    par = lambda t: t.reshape(b, co, n, 2).permute(0, 3, 1, 2)  # noqa: E731
+    top, bot = (par(t) for t in _up2_border(x, w_s, 2))
+    lf, rt = (par(t) for t in _up2_border(x, w_s, 3))
+    # written over the conv's output, which its backward does not need;
+    # the columns claim the corners, as in the JAX package
+    y[:, :2 * co, 0] = top.reshape(b, 2 * co, n)                 # p=0, J=0
+    y[:, 2 * co:, n - 1] = bot.reshape(b, 2 * co, n)             # p=1, J=n-1
+    y.view(b, 2, 2, co, n, n)[:, :, 0, :, :, 0] = lf             # q=0, K=0
+    y.view(b, 2, 2, co, n, n)[:, :, 1, :, :, n - 1] = rt         # q=1, K=n-1
+    return y
+
+
+# --------------------------------------------------------------------------
+# Fused avg-pool + (repack) + conv: D's level boundary as ONE conv
+# --------------------------------------------------------------------------
+#
+# Packed -> packed: s2d(conv3x3(group_mean(y))) is a 4x4 stride-2 conv of
+# the once-zero-padded y whose kernel is 0.25 w spread over taps
+# ty = a + dy and broadcast over the four input parities.  Packed ->
+# unpacked: the pooled grid is y's grid, so the group mean folds into the
+# kernel as a 0.25-weighted broadcast over the input parities.
+
+def fuse_pool2_conv3x3_weight(w, scale=1.0):
+    """OIHW (Co, Ci, 3, 3) kernel -> the fused pool + repack + conv kernel
+    (4Co, 4Ci, 4, 4): output channels (a, b, o), input channels (s, t, i)."""
+    co, ci = w.shape[:2]
+    with precision_scope('highest'):
+        wf = torch.einsum('padqbe,oide->aboipq',
+                          _const('pool', w.dtype, w.device), w * (0.25 * scale))
+    wf = wf[:, :, :, None, None].expand(2, 2, co, 2, 2, ci, 4, 4)
+    return wf.reshape(4 * co, 4 * ci, 4, 4)
+
+
+def pool2_equalized_conv3x3(x_packed, weight, bias=None, *, neg_slope=0.2):
+    """packed_equalized_conv3x3(s2d(packed_avg_pool2(x))) as one conv:
+    (B, 4Ci, m, m) -> (B, 4Co, m/2, m/2)."""
+    wf = fuse_pool2_conv3x3_weight(weight, _eq_scale3x3(weight, neg_slope))
+    b = None if bias is None else bias.repeat(4).to(x_packed.dtype)
+    return F.conv2d(x_packed, wf.to(x_packed.dtype), b, stride=2, padding=1)
+
+
+def pool2_unpacked_equalized_conv3x3(x_packed, weight, bias=None, *,
+                                     neg_slope=0.2):
+    """equalized conv3x3(packed_avg_pool2(x), padding 1) as one conv:
+    (B, 4Ci, m, m) -> (B, Co, m, m)."""
+    co, ci = weight.shape[:2]
+    w = weight * (0.25 * _eq_scale3x3(weight, neg_slope))
+    wf = w[:, None, None].expand(co, 2, 2, ci, 3, 3).reshape(co, 4 * ci, 3, 3)
+    b = None if bias is None else bias.to(x_packed.dtype)
+    return F.conv2d(x_packed, wf.to(x_packed.dtype), b, padding=1)

@@ -8,7 +8,7 @@ source is csrc/packed_conv_lrelu_pn.cu.  The input is a packed activation
 equalized-LR scale folded in (ops/packed.py::pack_conv3x3_weight); the N
 output channels are 4 parity groups of C = N / 4.  The forward returns
 
-    y (B, N, H, W)   lrelu(conv(x)) normalized per group, float32
+    y (B, N, H, W)   lrelu(conv(x)) normalized per group, in x's dtype
     r (B, 4, H, W)   each group's rsqrt scale, float32 (the JAX package
                      keeps it as (B, H*W, 4): the same numbers, transposed)
 
@@ -17,8 +17,10 @@ so the backward never needs the pre-activation: u = y / r.
 The forward kernel multiplies only the entries of ``w_packed`` that
 ``pack_conv3x3_weight`` can make nonzero (a quarter of them), gathered by
 ``compact_weight`` into wc (4, 3, 3, K/4, N/4); it assumes the rest are
-zero, as on every call site.  It runs the products on tensor cores at
-float32 accuracy (3xTF32, emulated by ``packed_conv3x3_taps``).
+zero, as on every call site.  It runs the products on tensor cores: in
+float32 at float32 accuracy (3xTF32, emulated by ``packed_conv3x3_taps``),
+in bfloat16 as bf16 x bf16 products (``w_packed`` rounded to bfloat16, as
+the JAX package casts it) with float32 accumulation and epilogue.
 
 Gradients mirror the JAX package's two custom VJPs:
 
@@ -26,7 +28,8 @@ Gradients mirror the JAX package's two custom VJPs:
   (x, w_packed, y, r); backward takes (ct_y, ct_r), runs ``Dz`` (K4) and
   then the conv's own adjoints for dx and dw, kept differentiable
   (``aten.convolution_backward``: what autograd of ``F.conv2d`` calls,
-  without re-running the forward conv).
+  without re-running the forward conv), in x's dtype with ``w_packed``
+  cast to it, dw cast back to ``w_packed``'s.
 * ``Dz`` (``_dz_call``): forward = K4; its own backward autodiffs the plain
   mirror ``packed_dz_plain`` (``_dz_pure``), so the WGAN-GP's gradient of
   a gradient composes.  Third order is not defined.
@@ -36,14 +39,15 @@ consumes the saved r, so the outer differentiation sends a cotangent into
 it, and the Function's backward runs again with that cotangent.  Unused
 outputs' cotangents arrive as zeros (``set_materialize_grads(True)``).
 
-A CPU tensor takes the plain versions; a CUDA tensor launches the kernels
-or raises if they cannot take it -- never a silent fall back.  Both kernels
-are float32 only: bfloat16 arrives with ``compute_dtype='mixed'`` (ROADMAP
-A5).  ``conv_launches`` and ``dz_launches`` count kernel launches, and
-nothing else; one forward launch is the weight split and the conv kernel
-after it.
+x, y, dz and the cotangent of y are float32 or bfloat16; r, its
+cotangent and ``w_packed`` float32.  A CPU tensor takes the plain
+versions; a CUDA tensor launches the kernels or raises if they cannot take
+it -- never a silent fall back.  ``conv_launches`` and ``dz_launches``
+count kernel launches by dtype name, and nothing else; one forward launch is
+the weight split and the conv kernel after it.
 """
 
+import collections
 import ctypes
 import functools
 
@@ -51,13 +55,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from neuron_gan_tpu_torch.ops.lrelu_pixel_norm import dtype_name
 from neuron_gan_tpu_torch.runtime import kernels
 
-conv_launches = 0
-dz_launches = 0
+conv_launches = collections.Counter()
+dz_launches = collections.Counter()
 
 # output widths N the forward kernel is instantiated for (C = N / 4)
 KERNEL_WIDTHS = (16, 32, 64, 128)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 # ---------------------------------------------------------------------------
@@ -80,7 +86,8 @@ def lrelu_pn_groups(z, neg_slope=0.2, eps=1e-8, dtype=None):
 
 
 def packed_conv_lrelu_pn_plain(x, w_packed, neg_slope=0.2, eps=1e-8):
-    """Plain version of the forward kernel: (y, r).  Differentiable."""
+    """Plain version of the forward kernel: (y, r).  Differentiable.  A
+    bfloat16 conv rounds z to bfloat16 before the float32 epilogue."""
     z = F.conv2d(x, w_packed.to(x.dtype), padding=1)
     return lrelu_pn_groups(z, neg_slope, eps, x.dtype)
 
@@ -203,9 +210,10 @@ def packed_conv3x3_taps(x, wc, products='exact'):
 # ---------------------------------------------------------------------------
 
 def _check_conv_args(x, w_packed):
-    if x.dtype != torch.float32 or w_packed.dtype != torch.float32:
-        raise TypeError(f'packed_conv_lrelu_pn kernel takes float32 (bfloat16 '
-                        f'is ROADMAP A5), got {x.dtype} and {w_packed.dtype}')
+    if x.dtype not in _DTYPE_CODES or w_packed.dtype != torch.float32:
+        raise TypeError(f'packed_conv_lrelu_pn kernel takes x in float32 or '
+                        f'bfloat16 and w_packed in float32, got {x.dtype} '
+                        f'and {w_packed.dtype}')
     if x.dim() != 4 or w_packed.dim() != 4:
         raise ValueError('packed_conv_lrelu_pn needs x (B, K, H, W) and '
                          'w_packed (N, K, 3, 3)')
@@ -224,13 +232,19 @@ def _check_conv_args(x, w_packed):
     if not x.is_contiguous():
         raise ValueError('packed_conv_lrelu_pn kernel needs a contiguous '
                          'NCHW x')
+    if x.dtype == torch.bfloat16 and x.shape[3] % 2:
+        raise ValueError(f'the bfloat16 packed_conv_lrelu_pn kernel stages '
+                         f'pixel pairs and needs an even width, got '
+                         f'{x.shape[3]}')
 
 
 def _check_dz_args(y, r, g, ct_r):
+    if y.dtype not in _DTYPE_CODES or g.dtype != y.dtype or \
+            r.dtype != torch.float32 or ct_r.dtype != torch.float32:
+        raise TypeError(f'packed dz kernel takes y and g in float32 or '
+                        f'bfloat16 (one dtype), r and ct_r in float32, got '
+                        f'{y.dtype}, {g.dtype}, {r.dtype}, {ct_r.dtype}')
     for t in (y, r, g, ct_r):
-        if t.dtype != torch.float32:
-            raise TypeError(f'packed dz kernel takes float32 (bfloat16 is '
-                            f'ROADMAP A5), got {t.dtype}')
         if t.device != y.device or not t.is_contiguous():
             raise ValueError('packed dz kernel inputs must be contiguous and '
                              'share a device')
@@ -248,13 +262,14 @@ def _lib():
     lib = kernels.load('packed_conv_lrelu_pn')
     if lib.packed_conv_lrelu_pn_fwd.argtypes is None:
         ptr, i64, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
+        i32 = ctypes.c_int
         lib.packed_conv_lrelu_pn_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i64,
                                                  i64, i64, i64, i64, f32, f32,
-                                                 ptr]
+                                                 i32, ptr]
         lib.packed_conv_lrelu_pn_dz.argtypes = [ptr, ptr, ptr, ptr, ptr, i64,
-                                                i64, i64, f32, ptr]
-        lib.packed_conv_lrelu_pn_fwd_smem.argtypes = [i64]
-        lib.packed_conv_lrelu_pn_fwd_scratch.argtypes = [i64, i64]
+                                                i64, i64, f32, i32, ptr]
+        lib.packed_conv_lrelu_pn_fwd_smem.argtypes = [i64, i32]
+        lib.packed_conv_lrelu_pn_fwd_scratch.argtypes = [i64, i64, i32]
         lib.packed_conv_lrelu_pn_fwd_scratch.restype = i64
         lib.packed_conv_lrelu_pn_fwd.restype = ctypes.c_int
         lib.packed_conv_lrelu_pn_dz.restype = ctypes.c_int
@@ -283,9 +298,11 @@ def conv_fwd_launcher(x, w_packed, neg_slope=0.2, eps=1e-8):
     b, k, h, w = x.shape
     n = w_packed.shape[0]
     lib = _lib()
+    code = _DTYPE_CODES[x.dtype]
     wc = compact_weight(w_packed.contiguous())
-    # the kernel's weights split into TF32 (hi, lo), in fragment order
-    scratch = torch.empty(lib.packed_conv_lrelu_pn_fwd_scratch(k, n),
+    # the kernel's weights in fragment order (float32: split into TF32
+    # (hi, lo); bfloat16: rounded)
+    scratch = torch.empty(lib.packed_conv_lrelu_pn_fwd_scratch(k, n, code),
                           dtype=torch.float32, device=x.device)
     y = torch.empty((b, n, h, w), dtype=x.dtype, device=x.device)
     r = torch.empty((b, 4, h, w), dtype=torch.float32, device=x.device)
@@ -295,7 +312,7 @@ def conv_fwd_launcher(x, w_packed, neg_slope=0.2, eps=1e-8):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             rc = lib.packed_conv_lrelu_pn_fwd(
                 x.data_ptr(), wc.data_ptr(), scratch.data_ptr(), y.data_ptr(),
-                r.data_ptr(), b, k, n, h, w, neg_slope, eps, stream)
+                r.data_ptr(), b, k, n, h, w, neg_slope, eps, code, stream)
         _raise_on(rc, 'packed_conv_lrelu_pn forward')
     return launch, y, r
 
@@ -306,14 +323,14 @@ def _conv_fwd(x, w_packed, neg_slope, eps):
         return packed_conv_lrelu_pn_plain(x, w_packed, neg_slope, eps)
     launch, y, r = conv_fwd_launcher(x, w_packed, neg_slope, eps)
     launch()
-    conv_launches += 1
+    conv_launches[dtype_name(x)] += 1
     return y, r
 
 
-def conv_fwd_smem(n):
+def conv_fwd_smem(n, dtype=torch.float32):
     """Dynamic shared memory, in bytes, of the forward kernel for N output
-    channels."""
-    return _lib().packed_conv_lrelu_pn_fwd_smem(n)
+    channels and x of ``dtype``."""
+    return _lib().packed_conv_lrelu_pn_fwd_smem(n, _DTYPE_CODES[dtype])
 
 
 def _dz(y, r, g, ct_r, neg_slope):
@@ -328,9 +345,10 @@ def _dz(y, r, g, ct_r, neg_slope):
         stream = torch.cuda.current_stream(y.device).cuda_stream
         rc = _lib().packed_conv_lrelu_pn_dz(
             y.data_ptr(), r.data_ptr(), g.data_ptr(), ct_r.data_ptr(),
-            dz.data_ptr(), b, n, h * w, neg_slope, stream)
+            dz.data_ptr(), b, n, h * w, neg_slope, _DTYPE_CODES[y.dtype],
+            stream)
     _raise_on(rc, 'packed_conv_lrelu_pn dz')
-    dz_launches += 1
+    dz_launches[dtype_name(y)] += 1
     return dz
 
 
@@ -378,9 +396,10 @@ class PackedConvLReluPN(torch.autograd.Function):
         dz = Dz.apply(y, r, ct_y.contiguous(), ct_r.contiguous(),
                       ctx.neg_slope)
         dx, dw, _ = torch.ops.aten.convolution_backward(
-            dz, x, w_packed, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
-            [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
-        return dx, dw, None, None
+            dz, x, w_packed.to(x.dtype), None, [1, 1], [1, 1], [1, 1], False,
+            [0, 0], 1, [ctx.needs_input_grad[0], ctx.needs_input_grad[1],
+                        False])
+        return dx, None if dw is None else dw.to(w_packed.dtype), None, None
 
 
 def packed_conv3x3_lrelu_pn(x, w_packed, neg_slope=0.2, eps=1e-8):

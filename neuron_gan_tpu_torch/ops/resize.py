@@ -4,6 +4,8 @@ Counterpart of neuron_gan_tpu/ops/resize.py:
 
 * ``upsample2_bilinear``: ``F.interpolate(scale_factor=2, mode='bilinear')``
   with align_corners=False (reference models.py:257, :335, :507);
+  ``up2_1d`` the same along one axis: the JAX package's shift-and-add
+  ``_up2_1d``, which ``upsample2_bilinear`` takes in bfloat16;
 * ``avg_pool`` / ``downsample2_bilinear``: 2x2 average pooling, which is
   what x0.5 bilinear with half-pixel centers computes;
 * ``resize_antialias``: torchvision ``Resize(size, antialias=True)`` as two
@@ -20,9 +22,26 @@ import torch.nn.functional as F
 
 
 def upsample2_bilinear(x):
-    """NCHW x2 bilinear upsample, align_corners=False."""
+    """NCHW x2 bilinear upsample, align_corners=False.  bfloat16 takes the
+    shift-and-add form, one axis after the other, which rounds where the
+    JAX package's does (after every product and sum); F.interpolate
+    rounds once."""
+    if x.dtype == torch.bfloat16:
+        return up2_1d(up2_1d(x, 2), 3)
     return F.interpolate(x, scale_factor=2, mode='bilinear',
                          align_corners=False)
+
+
+def up2_1d(x, dim):
+    """Double the length of ``dim`` (2 or 3 of NCHW) with torch bilinear
+    (align_corners=False): out[2k] = 0.25 x[k-1] + 0.75 x[k],
+    out[2k+1] = 0.75 x[k] + 0.25 x[k+1], edge-clamped."""
+    n = x.shape[dim]
+    xp = F.pad(x, (1, 1, 0, 0) if dim == 3 else (0, 0, 1, 1), mode='replicate')
+    x75 = 0.75 * x
+    even = 0.25 * xp.narrow(dim, 0, n) + x75
+    odd = x75 + 0.25 * xp.narrow(dim, 2, n)
+    return torch.stack([even, odd], dim + 1).flatten(dim, dim + 1)
 
 
 def avg_pool(x, k):

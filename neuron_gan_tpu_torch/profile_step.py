@@ -4,13 +4,17 @@
 
 Runs the flagship trainer (``flagship.py``) at steady 512^2 from random
 weights (seed 0) and a synthetic (16, 768, 768, 1) stack, once for each of
-its two configurations (unpacked, then the 2x2 packed layout; kernels on in
-both), then the packed one with the kernels off (``use_kernels=False``),
-which gives the kernel path's gain over the plain packed path.  After one
-warm-up epoch it traces two epochs of 2 steps each with torch.profiler,
-then two more with input shapes recorded.  Prints one JSON line per
-configuration: from the first window, device time per step, the device's
-idle share of the wall time, device time by kind (cuDNN/ATen
+its three configurations (unpacked, the 2x2 packed layout, and 'mixed' on
+the packed layout; kernels on in all), the packed and mixed ones again
+with the kernels off (``use_kernels=False``), which gives the kernel
+path's gain over the plain path, and the mixed one with its level
+boundaries decomposed (``fuse_up2_conv=fuse_pool_conv=False``), which
+gives the fused boundaries' gain.  After one warm-up epoch it traces two
+epochs of 2 steps each with torch.profiler, then two more with input
+shapes recorded.  Prints one JSON line per configuration: from the first
+window, wall and device time per step, the device's idle share of the
+wall time, the kernels launched per step (what a host-bound step pays
+for), device time by kind (cuDNN/ATen
 convolution, the LeakyReLU+PixelNorm kernels, the fused packed conv
 kernels K3 -- its weight split included -- and K4, the rest) and the top
 kernels by device time; from the second, the top ATen ops by the device
@@ -30,7 +34,8 @@ import numpy as np
 import torch
 
 from neuron_gan_tpu_torch.flagship import (
-    flagship_chunk_spec, flagship_config, flagship_packed_config)
+    flagship_chunk_spec, flagship_config, flagship_mixed_config,
+    flagship_packed_config)
 from neuron_gan_tpu_torch.models import DiscriminatorPG, GeneratorPG
 from neuron_gan_tpu_torch.train_step import init_train_state, make_epoch_runner
 
@@ -46,7 +51,8 @@ def _kind(name):
     if 'lrelu_pn' in low:
         return 'lrelu_pixel_norm'
     if any(k in low for k in ('conv', 'cudnn', 'xmma', 'implicit', 'winograd',
-                              'fft', 'dgrad', 'wgrad', 'fprop')):
+                              'fft', 'dgrad', 'wgrad', 'fprop', 'cutlass',
+                              'nchwtonhwc', 'nhwctonchw')):
         return 'convolution'
     return 'other'
 
@@ -86,13 +92,14 @@ def profile(name, cfg, images, smi):
 
     steps = 2 * spec.n_images // spec.batch_size
     prof, wall_us = _trace(epochs(2), record_shapes=False)
-    by_kind, top = {}, []
+    by_kind, top, launches = {}, [], 0
     for evt in prof.key_averages():
         us = _device_us(evt)
         if us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         by_kind[_kind(evt.key)] = by_kind.get(_kind(evt.key), 0.0) + us
         top.append((us, evt.key, evt.count))
+        launches += evt.count
     busy_us = sum(by_kind.values())
     top.sort(reverse=True)
     # a second window with input shapes recorded (which costs host time,
@@ -110,6 +117,7 @@ def profile(name, cfg, images, smi):
         'wall_ms_per_step': wall_us / steps / 1e3,
         'device_ms_per_step': busy_us / steps / 1e3 if busy_us else None,
         'device_idle_share': 1 - busy_us / wall_us if busy_us else None,
+        'kernels_per_step': launches / steps,
         'device_ms_per_step_by_kind': {k: v / steps / 1e3
                                        for k, v in by_kind.items()},
         'top_kernels': [{'name': n[:120], 'ms_per_step': us / steps / 1e3,
@@ -131,10 +139,16 @@ def main():
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     images = torch.from_numpy(np.random.default_rng(SEED).random(
         (16, 768, 768, 1)).astype(np.float32)).to('cuda')
-    packed = flagship_packed_config()
+    packed, mixed = flagship_packed_config(), flagship_mixed_config()
     for name, cfg in (('unpacked', flagship_config()), ('packed', packed),
                       ('packed_plain',
-                       dataclasses.replace(packed, use_kernels=False))):
+                       dataclasses.replace(packed, use_kernels=False)),
+                      ('mixed', mixed),
+                      ('mixed_plain',
+                       dataclasses.replace(mixed, use_kernels=False)),
+                      ('mixed_decomposed',
+                       dataclasses.replace(mixed, fuse_up2_conv=False,
+                                           fuse_pool_conv=False))):
         print(json.dumps(profile(name, cfg, images, smi)), flush=True)
     return 0
 

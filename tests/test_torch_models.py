@@ -183,20 +183,30 @@ def test_init_stds_match_jax(params):
                                          ('compute_dtype', 'bfloat16'),
                                          ('precision', None)])
 def test_unported_config_fields_raise(field, value):
-    # on a packed config: precision=None is where the JAX package fuses the
-    # packed level boundaries, which are not ported
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        PGConfig(**ARCH, packed_min_res=8, **{field: value})
+    # once unported, these values now construct on a packed config and
+    # resolve as in the JAX package; an unknown value of the field raises
+    cfg = PGConfig(**ARCH, packed_min_res=8, **{field: value})
+    jcfg = JPGConfig(**ARCH, packed_min_res=8, **{field: value})
+    assert (cfg.mixed, cfg.fused_up2, cfg.fused_pool) == \
+        (jcfg.mixed, jcfg.fused_up2, jcfg.fused_pool)
+    assert str(cfg.dtype).removeprefix('torch.') == str(jcfg.dtype)
+    with pytest.raises(ValueError, match=field):
+        PGConfig(**ARCH, packed_min_res=8,
+                 **{field: 'float16' if field == 'compute_dtype' else 'high'})
 
 
 def test_packed_config_checks():
-    # packed_min_res must exceed the stem/head resolution, as in JAX
+    # packed_min_res must exceed the stem/head resolution, as in JAX; the
+    # level boundaries fuse iff precision is None unless set
     with pytest.raises(ValueError, match='packed_min_res'):
         PGConfig(**ARCH, packed_min_res=4)
-    with pytest.raises(NotImplementedError, match='ROADMAP A11'):
-        PGConfig(**ARCH, packed_min_res=8, precision=None)
-    PGConfig(**ARCH, packed_min_res=8)
-    PGConfig(**ARCH, precision=None)        # unpacked: no boundaries to fuse
+    cfg = PGConfig(**ARCH, packed_min_res=8, precision=None)
+    assert cfg.fused_up2 and cfg.fused_pool
+    cfg = PGConfig(**ARCH, packed_min_res=8)
+    assert not cfg.fused_up2 and not cfg.fused_pool
+    cfg = PGConfig(**ARCH, packed_min_res=8, precision=None, fuse_pool_conv=False)
+    assert cfg.fused_up2 and not cfg.fused_pool
+    assert PGConfig(**ARCH).dtype == torch.float32
 
 
 

@@ -356,7 +356,7 @@ def test_dz_kernel_argument_checks_raise(bad):
     y, r = torch.zeros(2, 16, 4, 4), torch.ones(2, 4, 4, 4)
     g, ct_r = torch.zeros(2, 16, 4, 4), torch.zeros(2, 4, 4, 4)
     if bad == 'dtype':
-        y = y.bfloat16()
+        y, g = y.half(), g.half()
     elif bad == 'contiguous':
         g = g.transpose(2, 3)
     elif bad == 'r_shape':
@@ -365,6 +365,24 @@ def test_dz_kernel_argument_checks_raise(bad):
         y, g = torch.zeros(2, 14, 4, 4), torch.zeros(2, 14, 4, 4)
     with pytest.raises((TypeError, ValueError)):
         pcl._check_dz_args(y, r, g, ct_r)
+
+
+def test_kernel_argument_checks_take_bfloat16():
+    # bfloat16 x, y and g pass (w_packed, r and ct_r stay float32); the
+    # bfloat16 forward stages pixel pairs, so it refuses an odd width
+    x, w = torch.zeros(2, 16, 4, 4, dtype=torch.bfloat16), torch.zeros(16, 16, 3, 3)
+    pcl._check_conv_args(x, w)
+    with pytest.raises(TypeError):
+        pcl._check_conv_args(x, w.bfloat16())
+    with pytest.raises(ValueError, match='even width'):
+        pcl._check_conv_args(torch.zeros(2, 16, 4, 5, dtype=torch.bfloat16), w)
+    pcl._check_conv_args(torch.zeros(2, 16, 4, 5), w)
+    y, r = torch.zeros(2, 16, 4, 4, dtype=torch.bfloat16), torch.ones(2, 4, 4, 4)
+    pcl._check_dz_args(y, r, y, r)
+    with pytest.raises(TypeError):
+        pcl._check_dz_args(y, r.bfloat16(), y, r)
+    with pytest.raises(TypeError):
+        pcl._check_dz_args(y, r, y.float(), r)
 
 
 def test_fused_conv_refuses_a_device_without_kernel():

@@ -303,44 +303,61 @@ def load_chip_smoke():
     return smoke
 
 
-@pytest.mark.parametrize('phase,fading', [(1, False), (2, False), (2, True)])
-def test_packed_launches_per_step(packed_params, monkeypatch, phase, fading):
-    # the counts chip_smoke.py expects on the card for the packed path
-    # (chip_smoke.expected_launches), counted here by wrapping each launch
+def count_launches(monkeypatch, cfg, spec, params):
+    """Every kernel wrapper's launches in one batch step of ``cfg``, keyed
+    as chip_smoke.py keys its counters, counted by wrapping each launch."""
     import neuron_gan_tpu_torch.ops.packed_conv_lrelu_pn as pcl
     smoke = load_chip_smoke()
+    calls = {'k1': {}, 'k2': {}, 'k3': {}, 'k4': {}}
 
-    calls = {'k1': {}, 'k2': {}, 'k3': 0, 'k4': 0}
-
-    def count_grouped(name, fn):
+    def count(name, fn, grouped):
         def wrapped(x, *a):
-            n_groups = a[-3]            # (..., n_groups, neg_slope, eps)
-            calls[name][n_groups] = calls[name].get(n_groups, 0) + 1
+            # (x, ..., n_groups, neg_slope, eps) for the grouped epilogue
+            key = smoke.launch_key(lpn.dtype_name(x), a[-3] if grouped else None)
+            calls[name][key] = calls[name].get(key, 0) + 1
             return fn(x, *a)
         return wrapped
 
-    def count(name, fn):
-        def wrapped(*a):
-            calls[name] += 1
-            return fn(*a)
-        return wrapped
-
-    monkeypatch.setattr(lpn, '_fwd', count_grouped('k1', lpn._fwd))
-    monkeypatch.setattr(lpn, '_bwd', count_grouped('k2', lpn._bwd))
-    monkeypatch.setattr(pcl, '_conv_fwd', count('k3', pcl._conv_fwd))
-    monkeypatch.setattr(pcl, '_dz', count('k4', pcl._dz))
-    spec = dict(PACKED_SPEC, phase=phase, fading=fading)
-    state = port_state(packed_params, spec, TCFG_P)
+    monkeypatch.setattr(lpn, '_fwd', count('k1', lpn._fwd, True))
+    monkeypatch.setattr(lpn, '_bwd', count('k2', lpn._bwd, True))
+    monkeypatch.setattr(pcl, '_conv_fwd', count('k3', pcl._conv_fwd, False))
+    monkeypatch.setattr(pcl, '_dz', count('k4', pcl._dz, False))
+    state = port_state(params, spec, cfg)
     gen = torch.Generator().manual_seed(0)
-    draws = tts.draw_batch(gen, TCFG_P, tts.ChunkSpec(**spec), 2, PACKED_FRAME)
-    tts.make_batch_step(TCFG_P, tts.ChunkSpec(**spec))(
+    draws = tts.draw_batch(gen, cfg, tts.ChunkSpec(**spec), 2, PACKED_FRAME)
+    tts.make_batch_step(cfg, tts.ChunkSpec(**spec))(
         state, torch.rand(2, PACKED_FRAME, PACKED_FRAME, 1, generator=gen), draws,
         0.5, LR, 0.0)
+    return calls, smoke
+
+
+@pytest.mark.parametrize('phase,fading', [(1, False), (2, False), (2, True)])
+def test_packed_launches_per_step(packed_params, monkeypatch, phase, fading):
+    # the counts chip_smoke.py expects on the card for the packed path
+    # (chip_smoke.expected_launches)
+    spec = dict(PACKED_SPEC, phase=phase, fading=fading)
+    calls, smoke = count_launches(monkeypatch, TCFG_P, spec, packed_params)
     assert calls == smoke.expected_launches(TCFG_P, [phase])
-    assert calls['k3'] and calls['k4'] and calls['k1'].get(4)
+    assert calls['k3'] and calls['k4'] and calls['k1'].get('float32/4')
     # the unpacked path's counts, as test_epilogue_launches_per_step has them
     assert smoke.expected_launches(TCFG, [phase]) == {
-        'k1': {1: 14 * phase}, 'k2': {1: 12 * phase}, 'k3': 0, 'k4': 0}
+        'k1': {'float32/1': 14 * phase}, 'k2': {'float32/1': 12 * phase},
+        'k3': {}, 'k4': {}}
+
+
+@pytest.mark.parametrize('phase,fading', [(1, False), (2, True)])
+def test_mixed_launches_per_step(packed_params, monkeypatch, phase, fading):
+    # the mixed path (fused level boundaries at precision=None): the
+    # packed path's counts, every launch in bfloat16
+    cfg = dataclasses.replace(TCFG_P, compute_dtype='mixed', precision=None)
+    assert cfg.fused_up2 and cfg.fused_pool
+    spec = dict(PACKED_SPEC, phase=phase, fading=fading)
+    calls, smoke = count_launches(monkeypatch, cfg, spec, packed_params)
+    want = smoke.expected_launches(cfg, [phase])
+    assert calls == want
+    f32 = smoke.expected_launches(TCFG_P, [phase])
+    assert want == {k: {n.replace('float32', 'bfloat16'): c for n, c in v.items()}
+                    for k, v in f32.items()}
 
 
 
@@ -353,7 +370,9 @@ def test_flagship_packed_launches_per_512_step():
     cfg = flagship_packed_config()
     assert cfg == dataclasses.replace(flagship_config(), packed_min_res=64)
     assert load_chip_smoke().expected_launches(cfg, [5]) == {
-        'k1': {1: 22, 4: 24}, 'k2': {1: 22, 4: 19}, 'k3': 24, 'k4': 19}
+        'k1': {'float32/1': 22, 'float32/4': 24},
+        'k2': {'float32/1': 22, 'float32/4': 19},
+        'k3': {'float32': 24}, 'k4': {'float32': 19}}
 
 # ---------------------------------------------------------------------------
 # epoch runner
@@ -474,6 +493,26 @@ def test_unported_spec_fields_raise(field):
     spec = tts.ChunkSpec(**dict(SPEC, **{field: True}))
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         tts.make_batch_step(TCFG, spec)
+
+
+def test_flagship_mixed_config_is_the_jax_shipping_numerics():
+    # the JAX package's flagship_config(packed_lanes=None): 'mixed' at
+    # precision=None on the 2x2 layout, fused boundaries, every kernel on
+    from neuron_gan_tpu.flagship import flagship_config as jflag
+    from neuron_gan_tpu_torch.flagship import (
+        flagship_mixed_config, flagship_packed_config)
+    cfg, jcfg = flagship_mixed_config(), jflag(packed_lanes=None)
+    for f in ('n_gen_features', 'n_dis_features', 'latent_dim', 'image_size_init',
+              'n_colors', 'neg_slope', 'compute_dtype', 'precision',
+              'packed_min_res', 'fused_up2', 'fused_pool', 'mixed'):
+        assert getattr(cfg, f) == getattr(jcfg, f), f
+    assert cfg.use_kernels and cfg.fused_up2 and cfg.fused_pool
+    assert cfg == dataclasses.replace(flagship_packed_config(), compute_dtype='mixed',
+                                      precision=None)
+    assert load_chip_smoke().expected_launches(cfg, [5]) == {
+        'k1': {'bfloat16/1': 22, 'bfloat16/4': 24},
+        'k2': {'bfloat16/1': 22, 'bfloat16/4': 19},
+        'k3': {'bfloat16': 24}, 'k4': {'bfloat16': 19}}
 
 
 def test_flagship_geometry():
