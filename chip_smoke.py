@@ -17,24 +17,32 @@ Phases, each printing one JSON line:
               limit);
 2. build      every CUDA kernel of the port, built from csrc/ with nvcc,
               all sources at once;
-3. kernels    each kernel against its plain PyTorch version on the card, in
-              float32 and in bfloat16, at every shape a training path gives
-              it (plus ragged cases): forward, backward and a GP-style
-              second order, compared in the working type; each kernel's and
-              its plain version's times at the largest shape; the packed
-              conv forward (K3) also against a float64 run there, and its,
-              its plain version's and F.conv2d's times at every distinct
-              shape;
-4. boundaries each fused level boundary of the mixed path against its
-              decomposed chain at that path's shapes (float32, TF32 off),
-              and both forms' bfloat16 times;
-5. train      for each path: the PGGAN, random weights from --seed, trained
+3. train      for each path: the PGGAN, random weights from --seed, trained
               with WGAN-GP + drift through the epoch runner under a
               schedule that visits every phase and fade-in and ends at
               steady 512^2; stats must be finite and every kernel's launch
               counter must rise by exactly the count the path implies (by
-              dtype, K1/K2 also by grouping); then steps/s over steady
-              512^2 steps;
+              dtype, K1/K2 also by grouping; over the steady steps every
+              kernel also by shape, and K4 by live or absent r cotangent);
+              then steps/s over steady 512^2 steps.  It runs before any
+              kernel is timed: the profiler has not run in the process;
+4. kernels    each kernel against its plain PyTorch version on the card, in
+              float32 and in bfloat16, at every shape a training path gives
+              it (plus ragged cases): forward, backward and a GP-style
+              second order, compared in the working type; K4 also with r's
+              cotangent absent, at H*W off its 16-byte vectors and on
+              tensors with a storage offset; the packed conv forward (K3)
+              also against a float64 run at the largest shape.  Device
+              times (``runtime/timing.py::device_ms``: the kernels' own
+              durations from torch.profiler, the L2 cache overwritten
+              before each call)
+              of K1/K2 at every path shape and of each kernel and its plain
+              version at the largest; of K3 (and its plain version and
+              F.conv2d) and of K4 (and its plain version) at every
+              distinct packed shape, each beside its bound;
+5. boundaries each fused level boundary of the mixed path against its
+              decomposed chain at that path's shapes (float32, TF32 off),
+              and both forms' bfloat16 times;
 6. parity     for each path, one 512^2 batch step with the kernels, with the
               plain ops and with a reference (float32 paths: the plain ops
               in float64, and for the packed path also the plain unpacked
@@ -45,7 +53,9 @@ Phases, each printing one JSON line:
               that bound (see ``parity``).
 
 Then the kernel table (one JSON line: a float32 and a bfloat16 row for each
-kernel), the card's nvidia-smi line, and last ``{"ok": true, "device":
+kernel, each with its launches per steady 512^2 step, as counted, and the
+sum of their bounds; K4's with every shape's times), the card's nvidia-smi
+line, and last ``{"ok": true, "device":
 {...}}``.  Any failed check raises and the script
 exits non-zero without that line; without CUDA it exits 2 at once.
 """
@@ -60,6 +70,8 @@ import time
 from unittest import mock
 
 import numpy as np
+
+from neuron_gan_tpu_torch.runtime.timing import device_ms
 
 
 def emit(obj):
@@ -108,6 +120,79 @@ PACKED_SHAPES = [(128, 32), (128, 64), (64, 128), (64, 256),
 UNPACKED_OF_PACKED = [(64, 32), (64, 32), (128, 16)]
 
 
+def steady_step_sites(path):
+    """Every kernel launch of one steady 512^2 step of a path ('unpacked',
+    'packed' or 'mixed'), as {(kernel, shape, case): launches}: K1/K2 at
+    (8, C, R, R) with case = the grouping, K3 at y's shape with case None,
+    K4 at y's shape with case 'live' or 'absent' (r's cotangent).  G runs
+    3 forwards and 1 backward a step, D 4 and 5 (``expected_launches``);
+    an unpacked block has two K1 epilogues, a packed one a K1 at 4 groups
+    and a K3; a K4 runs in each backward of a K3, with a live ct_r in D's
+    GP outer pass alone."""
+    sites = collections.Counter()
+
+    def unpacked(c, r, fwd, bwd):
+        sites['k1', (8, c, r, r), 1] += 2 * fwd
+        sites['k2', (8, c, r, r), 1] += 2 * bwd
+
+    def packed(n, s, fwd, bwd, live):
+        y = (8, n, s, s)
+        sites['k1', y, 4] += fwd
+        sites['k2', y, 4] += bwd
+        sites['k3', y, None] += fwd
+        sites['k4', y, 'absent'] += bwd - live
+        if live:
+            sites['k4', y, 'live'] += live
+
+    if path == 'unpacked':
+        for c, r in G_SHAPES:
+            unpacked(c, r, 3, 1)
+        for c, r in D_SHAPES:
+            unpacked(c, r, 4, 5)
+    else:
+        unpacked(*UNPACKED_OF_PACKED[0], 3, 1)
+        for c, r in UNPACKED_OF_PACKED[1:]:
+            unpacked(c, r, 4, 5)
+        for n, s in PACKED_SHAPES[:4]:
+            packed(n, s, 3, 1, 0)
+        for n, s in PACKED_SHAPES[4:]:
+            packed(n, s, 4, 5, 1)
+    return dict(sites)
+
+
+def epilogue_shapes(dtype):
+    """(x shape, grouping) of every K1/K2 launch of the paths that run
+    them in ``dtype`` (float32: unpacked and packed; bfloat16: mixed)."""
+    import torch
+    paths = ('unpacked', 'packed') if dtype == torch.float32 else ('mixed',)
+    return {(shape, case) for p in paths
+            for (k, shape, case) in steady_step_sites(p) if k == 'k1'}
+
+
+def epilogue_bound_ms(kernel, shape, itemsize):
+    """Least time of K1 (x read, y written, about 6 float32 operations an
+    element) or K2 (x and the cotangent read, dx written, about 12) on x of
+    ``shape``: bound by its bytes."""
+    numel = int(np.prod(shape))
+    n_io, ops = (2, 6) if kernel == 'k1' else (3, 12)
+    return max(n_io * numel * itemsize / HBM_BYTES_PER_S,
+               ops * numel / F32_OPS_PER_S) * 1e3
+
+
+def dz_bytes(shape, itemsize, live=True):
+    """Bytes K4 must move for y of ``shape``: y and ct_y read, dz written
+    (``itemsize`` each), r read and, when live, ct_r (float32)."""
+    b, n, h, w = shape
+    return 3 * b * n * h * w * itemsize + (2 if live else 1) * 4 * b * 4 * h * w
+
+
+def dz_bound_ms(shape, itemsize, live=True):
+    """Least time of K4: its bytes, against about 12 float32 operations an
+    element of y (bound by the bytes)."""
+    return max(dz_bytes(shape, itemsize, live) / HBM_BYTES_PER_S,
+               12 * int(np.prod(shape)) / F32_OPS_PER_S) * 1e3
+
+
 def ulp_bf16(t):
     """One bfloat16 ulp (8 significant bits) at the largest magnitude of t."""
     return 2.0 ** (np.floor(np.log2(t.float().abs().max().item())) - 7)
@@ -129,7 +214,7 @@ def rel_l2(xs, ys):
 
 
 # ---------------------------------------------------------------------------
-# phase 3: kernels against their plain versions
+# phase 4: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 def check_epilogue_kernels(torch, lpn, seed):
@@ -219,39 +304,45 @@ def check_epilogue_kernels(torch, lpn, seed):
         checked.append({'gp_second_order': list(shape), 'n_groups': n_groups,
                         'dtype': 'bfloat16'})
 
-    # times at the largest shape of the unpacked path, (8, 16, 512, 512)
-    shape = (8, 16, 512, 512)
+    # device times at the largest shape of the unpacked path, (8, 16,
+    # 512, 512), and in bfloat16 at the mixed path's largest, (8, 64, 256,
+    # 256) at 4 groups (the same bytes); then the kernels alone at every
+    # shape a path gives them
+    shape, shape_bf16 = (8, 16, 512, 512), (8, 64, 256, 256)
     x, g = randn(shape), randn(shape)
-    numel = x.numel()
-    times = {
-        'fwd_ms': cuda_ms(lambda: lpn._fwd(x, 1, 0.2, 1e-8)),
-        'fwd_plain_ms': cuda_ms(lambda: lpn.lrelu_pixel_norm_plain(x)),
-        'bwd_ms': cuda_ms(lambda: lpn._bwd(x, g, 1, 0.2, 1e-8)),
-        'bwd_plain_ms': cuda_ms(lambda: lpn.lrelu_pixel_norm_bwd_plain(x, g)),
-    }
-    # least time: each input read once, each output written once (bytes),
-    # against about 6 (fwd) and 12 (bwd) float32 operations per element
-    # bfloat16 at the mixed path's largest shape, (8, 64, 256, 256) at 4
-    # groups (the same bytes as (8, 16, 512, 512))
-    shape_bf16 = (8, 64, 256, 256)
     xb, gb = randn(shape_bf16, torch.bfloat16), randn(shape_bf16, torch.bfloat16)
-    times.update({
-        'fwd_bf16_ms': cuda_ms(lambda: lpn._fwd(xb, 4, 0.2, 1e-8)),
-        'fwd_bf16_plain_ms': cuda_ms(lambda: lpn.lrelu_pixel_norm_plain(xb, 4)),
-        'bwd_bf16_ms': cuda_ms(lambda: lpn._bwd(xb, gb, 4, 0.2, 1e-8)),
-        'bwd_bf16_plain_ms': cuda_ms(
+    times = {
+        'fwd_ms': device_ms(lambda: lpn._fwd(x, 1, 0.2, 1e-8)),
+        'fwd_plain_ms': device_ms(lambda: lpn.lrelu_pixel_norm_plain(x)),
+        'bwd_ms': device_ms(lambda: lpn._bwd(x, g, 1, 0.2, 1e-8)),
+        'bwd_plain_ms': device_ms(lambda: lpn.lrelu_pixel_norm_bwd_plain(x, g)),
+        'fwd_bf16_ms': device_ms(lambda: lpn._fwd(xb, 4, 0.2, 1e-8)),
+        'fwd_bf16_plain_ms': device_ms(
+            lambda: lpn.lrelu_pixel_norm_plain(xb, 4)),
+        'bwd_bf16_ms': device_ms(lambda: lpn._bwd(xb, gb, 4, 0.2, 1e-8)),
+        'bwd_bf16_plain_ms': device_ms(
             lambda: lpn.lrelu_pixel_norm_bwd_plain(xb, gb, 4)),
-    })
-    nb = xb.numel()
-    bounds = {
-        'fwd': max(2 * numel * 4 / HBM_BYTES_PER_S, 6 * numel / F32_OPS_PER_S),
-        'bwd': max(3 * numel * 4 / HBM_BYTES_PER_S, 12 * numel / F32_OPS_PER_S),
-        'fwd_bf16': max(2 * nb * 2 / HBM_BYTES_PER_S, 6 * nb / F32_OPS_PER_S),
-        'bwd_bf16': max(3 * nb * 2 / HBM_BYTES_PER_S, 12 * nb / F32_OPS_PER_S),
     }
+    bounds = {'fwd': epilogue_bound_ms('k1', shape, 4),
+              'bwd': epilogue_bound_ms('k2', shape, 4),
+              'fwd_bf16': epilogue_bound_ms('k1', shape_bf16, 2),
+              'bwd_bf16': epilogue_bound_ms('k2', shape_bf16, 2)}
+    by_shape = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for shp, n_groups in sorted(epilogue_shapes(dtype)):
+            xs, gs = randn(shp, dtype), randn(shp, dtype)
+            item = xs.element_size()
+            by_shape.append({
+                'dtype': str(dtype).removeprefix('torch.'), 'x': list(shp),
+                'n_groups': n_groups,
+                'fwd_ms': device_ms(lambda: lpn._fwd(xs, n_groups, 0.2, 1e-8)),
+                'bwd_ms': device_ms(
+                    lambda: lpn._bwd(xs, gs, n_groups, 0.2, 1e-8)),
+                'fwd_bound_ms': epilogue_bound_ms('k1', shp, item),
+                'bwd_bound_ms': epilogue_bound_ms('k2', shp, item)})
     return {'max_abs_err': err, 'checked': checked, 'timed_shape': list(shape),
             'timed_shape_bf16': list(shape_bf16), 'timed_n_groups_bf16': 4,
-            **times, 'bound_ms': {k: v * 1e3 for k, v in bounds.items()}}
+            **times, 'bound_ms': bounds, 'by_shape': by_shape}
 
 
 # Tolerances of the packed conv pair against its plain version (cuDNN's
@@ -390,65 +481,83 @@ def check_packed_kernels(torch, pcl, seed):
         assert vs64['conv'] <= 2 * vs64['plain'], vs64
         del y64, r64
 
-        # times of K3 (its two kernels, and the whole wrapper with the
-        # weight gather), the plain version and F.conv2d at each distinct
-        # packed conv2 shape of the path; the largest site also for K4
-        by_shape = []
-        for n_s, side_s in sorted(set(PACKED_SHAPES)):
-            xs, wps = packed_case(torch, gen, 8, n_s, n_s, side_s, side_s)
-            launch, _, _ = pcl.conv_fwd_launcher(xs, wps)
-            by_shape.append({
-                'x': [8, n_s, side_s, side_s], 'n': n_s,
-                'smem_bytes': pcl.conv_fwd_smem(n_s),
-                'kernels_ms': cuda_ms(launch),
-                'wrapper_ms': cuda_ms(lambda: pcl._conv_fwd(xs, wps, 0.2, 1e-8)),
-                'plain_ms': cuda_ms(
-                    lambda: pcl.packed_conv_lrelu_pn_plain(xs, wps)),
-                'library_ms': cuda_ms(lambda: torch.nn.functional.conv2d(
-                    xs, wps, padding=1))})
-        largest = by_shape[[e['x'] for e in by_shape].index([b, k, side, side])]
-        g = torch.randn_like(y)
-        ct_r = torch.randn_like(r)
-        times = {
-            'conv_ms': largest['wrapper_ms'],
-            'conv_plain_ms': largest['plain_ms'],
-            'conv_library_ms': largest['library_ms'],
-            'dz_ms': cuda_ms(lambda: pcl._dz(y, r, g, ct_r, 0.2)),
-            'dz_plain_ms': cuda_ms(
-                lambda: pcl.packed_dz_plain(y, r, g, ct_r)),
-        }
-    # least work: the conv over the nonzero taps of this w_packed (3/4 of a
-    # packed kernel are zeros by construction), as K3 does it -- three TF32
-    # products per multiply-add on the tensor cores -- against the bytes;
-    # beside it the same taps on the float32 pipes (what a float32 kernel
-    # would need) and the dense count (what PR 2's kernel did)
+        by_shape = conv_by_shape(torch, pcl, gen, torch.float32)
+    largest = by_shape[[e['x'] for e in by_shape].index([b, k, side, side])]
+    times = {'conv_ms': largest['wrapper_ms'],
+             'conv_plain_ms': largest['plain_ms'],
+             'conv_library_ms': largest['library_ms']}
+    # least work: the conv over the nonzero taps of this w_packed as K3
+    # does it (conv_bound), against the bytes; beside it the same taps on
+    # the float32 pipes (what a float32 kernel would need) and the dense
+    # count (every tap of w_packed, its zeros included)
     pix = b * side * side
     nonzero_macs = int(torch.count_nonzero(wp)) * pix
-    conv_bytes = 4 * (pix * k + n * k * 9 + pix * n + pix * 4)
-    conv_ops = 3 * 2 * nonzero_macs
     conv_f32_ops = 2 * nonzero_macs + 8 * pix * n
     conv_dense_ops = 2 * 9 * k * n * pix + 8 * pix * n
-    dz_bytes = 4 * (3 * pix * n + 2 * pix * 4)
-    dz_ops = 12 * pix * n
+    n_bytes = largest['bytes']
 
-    def bound(n_bytes, n_ops, ops_per_s=F32_OPS_PER_S):
-        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
+    def bound(n_ops):
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
         return (max(t_bytes, t_ops) * 1e3,
                 'bytes' if t_bytes > t_ops else 'operations')
 
-    bounds = {'conv': bound(conv_bytes, conv_ops, TF32_OPS_PER_S),
-              'conv_f32': bound(conv_bytes, conv_f32_ops),
-              'conv_dense': bound(conv_bytes, conv_dense_ops),
-              'dz': bound(dz_bytes, dz_ops)}
+    bounds = {'conv': (largest['bound_ms'], largest['bound_by']),
+              'conv_f32': bound(conv_f32_ops),
+              'conv_dense': bound(conv_dense_ops)}
     return {'max_abs_err': err, 'checked': checked,
             'rel_max_err_vs_float64': vs64,
             'timed_x': [b, k, side, side], 'timed_n': n, **times,
             'conv_by_shape': by_shape,
-            'bytes': {'conv': conv_bytes, 'dz': dz_bytes},
-            'flop': {'conv': conv_ops, 'conv_f32': conv_f32_ops,
-                     'conv_dense': conv_dense_ops, 'dz': dz_ops},
+            'flop': {'conv': largest['flop'], 'conv_f32': conv_f32_ops,
+                     'conv_dense': conv_dense_ops},
             'bound_ms': {key: v[0] for key, v in bounds.items()},
             'bound_by': {key: v[1] for key, v in bounds.items()}}
+
+
+def conv_bound(x_shape, n, nonzero_w, itemsize):
+    """(bytes, operations, least ms, 'bytes' or 'operations') of K3 on x
+    of ``x_shape`` into N channels: x read and y written in the working
+    type, the weights and r float32; the products over w_packed's
+    ``nonzero_w`` nonzero taps as K3 runs them on the tensor cores (three
+    TF32 products a multiply-add in float32, one bfloat16 product in
+    bfloat16)."""
+    b, k, h, w = x_shape
+    pix = b * h * w
+    n_bytes = itemsize * pix * (k + n) + 4 * n * k * 9 + 4 * pix * 4
+    if itemsize == 4:
+        n_ops, rate = 3 * 2 * nonzero_w * pix, TF32_OPS_PER_S
+    else:
+        n_ops, rate = 2 * nonzero_w * pix, BF16_OPS_PER_S
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / rate
+    return (n_bytes, n_ops, max(t_bytes, t_ops) * 1e3,
+            'bytes' if t_bytes > t_ops else 'operations')
+
+
+def conv_by_shape(torch, pcl, gen, dtype):
+    """K3 at each distinct packed conv2 shape of the path, device times
+    (device_ms): its two kernels alone, the whole wrapper (the weight
+    gather too), the plain version and F.conv2d (with w_packed in x's
+    type); its bound beside."""
+    rows = []
+    for n, side in sorted(set(PACKED_SHAPES)):
+        xs, wps = packed_case(torch, gen, 8, n, n, side, side)
+        xs = xs.to(dtype)
+        wds = wps.to(dtype)
+        launch, _, _ = pcl.conv_fwd_launcher(xs, wps)
+        n_bytes, n_ops, bound_ms, bound_by = conv_bound(
+            xs.shape, n, int(torch.count_nonzero(wps)), xs.element_size())
+        rows.append({
+            'x': [8, n, side, side], 'n': n,
+            'smem_bytes': pcl.conv_fwd_smem(n, dtype),
+            'kernels_ms': device_ms(launch),
+            'wrapper_ms': device_ms(lambda: pcl._conv_fwd(xs, wps, 0.2, 1e-8)),
+            'plain_ms': device_ms(
+                lambda: pcl.packed_conv_lrelu_pn_plain(xs, wps)),
+            'library_ms': device_ms(lambda: torch.nn.functional.conv2d(
+                xs, wds, padding=1)),
+            'bytes': n_bytes, 'flop': n_ops, 'bound_ms': bound_ms,
+            'bound_by': bound_by})
+    return rows
 
 
 def check_packed_kernels_bf16(torch, pcl, seed):
@@ -547,58 +656,102 @@ def check_packed_kernels_bf16(torch, pcl, seed):
     assert vs64['conv'] <= 1.5 * vs64['plain'], vs64
     del y64, r64
 
-    by_shape = []
-    for n_s, side_s in sorted(set(PACKED_SHAPES)):
-        xs, wps = packed_case(torch, gen, 8, n_s, n_s, side_s, side_s)
-        xs, wbs = xs.to(bf), wps.to(bf)
-        launch, _, _ = pcl.conv_fwd_launcher(xs, wps)
-        by_shape.append({
-            'x': [8, n_s, side_s, side_s], 'n': n_s,
-            'smem_bytes': pcl.conv_fwd_smem(n_s, bf),
-            'kernels_ms': cuda_ms(launch),
-            'wrapper_ms': cuda_ms(lambda: pcl._conv_fwd(xs, wps, 0.2, 1e-8)),
-            'plain_ms': cuda_ms(
-                lambda: pcl.packed_conv_lrelu_pn_plain(xs, wps)),
-            'library_ms': cuda_ms(lambda: torch.nn.functional.conv2d(
-                xs, wbs, padding=1))})
+    by_shape = conv_by_shape(torch, pcl, gen, bf)
     largest = by_shape[[e['x'] for e in by_shape].index([b, k, side, side])]
-    g = torch.randn(y.shape, generator=gen, device='cuda').to(bf)
-    ct_r = torch.randn(r.shape, generator=gen, device='cuda')
-    times = {
-        'conv_ms': largest['wrapper_ms'],
-        'conv_plain_ms': largest['plain_ms'],
-        'conv_library_ms': largest['library_ms'],
-        'dz_ms': cuda_ms(lambda: pcl._dz(y, r, g, ct_r, 0.2)),
-        'dz_plain_ms': cuda_ms(lambda: pcl.packed_dz_plain(y, r, g, ct_r)),
-    }
-    # least work: one bfloat16 product per multiply-add of the nonzero taps
-    # against the bytes (x and y in bfloat16, r and the weights float32)
-    pix = b * side * side
-    nonzero_macs = int(torch.count_nonzero(wp)) * pix
-    conv_bytes = 2 * pix * k + 4 * n * k * 9 + 2 * pix * n + 4 * pix * 4
-    conv_ops = 2 * nonzero_macs
-    dz_bytes = 2 * 3 * pix * n + 4 * 2 * pix * 4
-    dz_ops = 12 * pix * n
-
-    def bound(n_bytes, n_ops, ops_per_s):
-        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
-        return (max(t_bytes, t_ops) * 1e3,
-                'bytes' if t_bytes > t_ops else 'operations')
-
-    bounds = {'conv': bound(conv_bytes, conv_ops, BF16_OPS_PER_S),
-              'dz': bound(dz_bytes, dz_ops, F32_OPS_PER_S)}
+    times = {'conv_ms': largest['wrapper_ms'],
+             'conv_plain_ms': largest['plain_ms'],
+             'conv_library_ms': largest['library_ms']}
     return {'max_abs_err': err, 'checked': checked,
             'rel_max_err_vs_float64': vs64,
             'timed_x': [b, k, side, side], 'timed_n': n, **times,
             'conv_by_shape': by_shape,
-            'bytes': {'conv': conv_bytes, 'dz': dz_bytes},
-            'flop': {'conv': conv_ops, 'dz': dz_ops},
-            'bound_ms': {key: v[0] for key, v in bounds.items()},
-            'bound_by': {key: v[1] for key, v in bounds.items()}}
+            'flop': {'conv': largest['flop']},
+            'bound_ms': {'conv': largest['bound_ms']},
+            'bound_by': {'conv': largest['bound_by']}}
+
+
+# K4's extra cases, y (B, N, H, W): H*W not a multiple of the kernel's
+# 16-byte vector (the smoke's ragged conv cases: its scalar path), and a
+# vector-path case whose last warp is partial
+DZ_TAILS = {'float32': [(3, 32, 5, 37), (2, 16, 9, 33), (3, 128, 8, 12)],
+            'bfloat16': [(3, 32, 5, 38), (2, 16, 9, 34), (3, 128, 8, 12)]}
+
+
+def check_dz_kernel(torch, pcl, seed):
+    """K4 alone against its plain version, float32 elementwise at
+    PACKED_TOL['dz'] and bfloat16 within 2 bfloat16 ulps: at every path
+    shape and the DZ_TAILS, with r's cotangent live and absent (None: a
+    null pointer), and on tensors with a storage offset (not 16-byte
+    aligned: the scalar path).  Then, at each path shape, the device times
+    of the kernel (ct_r live and absent) and of the plain version, its
+    bound and the kernel's registers."""
+    gen = torch.Generator(device='cuda').manual_seed(seed + 17)
+
+    def case(shape, dtype, offset=0):
+        """y, r, ct_y, ct_r at y's ``shape``, each ``offset`` elements into
+        its storage."""
+        b, _, h, w = shape
+
+        def place(t):
+            if not offset:
+                return t
+            buf = torch.empty(t.numel() + offset, dtype=t.dtype, device='cuda')
+            view = buf[offset:].view(t.shape)
+            view.copy_(t)
+            return view
+
+        y = torch.randn(shape, generator=gen, device='cuda').to(dtype)
+        g = torch.randn(shape, generator=gen, device='cuda').to(dtype)
+        r = 0.5 + torch.rand((b, 4, h, w), generator=gen, device='cuda')
+        ct_r = torch.randn((b, 4, h, w), generator=gen, device='cuda')
+        return [place(t) for t in (y, r, g, ct_r)]
+
+    err, checked, rows = {}, [], []
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).removeprefix('torch.')
+        err[dt] = 0.0
+
+        def check(y, r, g, ct_r, what):
+            got = pcl._dz(y, r, g, ct_r, 0.2)
+            want = pcl.packed_dz_plain(y, r, g, ct_r)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype, (what, got.dtype)
+            if dtype == torch.float32:
+                torch.testing.assert_close(got, want, **PACKED_TOL['dz'])
+                e = (got - want).abs().max().item()
+            else:
+                e = within_ulps(torch, got, want)
+            err[dt] = max(err[dt], e)
+            checked.append({'y': list(y.shape), 'dtype': dt, 'case': what})
+
+        shapes = [(8, n, s, s) for n, s in sorted(set(PACKED_SHAPES))]
+        for shape in shapes + DZ_TAILS[dt]:
+            y, r, g, ct_r = case(shape, dtype)
+            check(y, r, g, ct_r, 'live')
+            check(y, r, g, None, 'absent')
+        y, r, g, ct_r = case((8, 128, 32, 32), dtype, offset=1)
+        assert y.data_ptr() % 16 and r.data_ptr() % 16
+        check(y, r, g, ct_r, 'storage offset, live')
+        check(y, r, g, None, 'storage offset, absent')
+
+        for shape in shapes:
+            y, r, g, ct_r = case(shape, dtype)
+            item = y.element_size()
+            rows.append({
+                'dtype': dt, 'y': list(shape),
+                'ms': device_ms(lambda: pcl._dz(y, r, g, ct_r, 0.2)),
+                'ms_ct_r_absent': device_ms(lambda: pcl._dz(y, r, g, None, 0.2)),
+                'plain_ms': device_ms(lambda: pcl.packed_dz_plain(y, r, g, ct_r)),
+                'bytes': dz_bytes(shape, item),
+                'bound_ms': dz_bound_ms(shape, item),
+                'bound_ms_ct_r_absent': dz_bound_ms(shape, item, live=False),
+                'bound_by': 'bytes',
+                'regs': pcl.dz_regs(shape[1], dtype)})
+    return {'max_abs_err': err, 'checked': checked, 'by_shape': rows}
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the fused level boundaries against their decomposed chains
+# phase 5: the fused level boundaries against their decomposed chains
 # ---------------------------------------------------------------------------
 
 def boundary_cases(cfg):
@@ -674,7 +827,7 @@ def check_boundaries(torch, seed, cfg):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the main paths
+# phase 3: the main paths
 # ---------------------------------------------------------------------------
 
 def launch_key(dtype, n_groups=None):
@@ -718,7 +871,8 @@ def reset_counters():
     import neuron_gan_tpu_torch.ops.lrelu_pixel_norm as lpn
     import neuron_gan_tpu_torch.ops.packed_conv_lrelu_pn as pcl
     for counter in (lpn.fwd_launches, lpn.bwd_launches, pcl.conv_launches,
-                    pcl.dz_launches):
+                    pcl.dz_launches, lpn.launches_by_case,
+                    pcl.launches_by_case):
         counter.clear()
 
 
@@ -728,6 +882,14 @@ def read_counters():
     return {'k1': {launch_key(*k): n for k, n in lpn.fwd_launches.items()},
             'k2': {launch_key(*k): n for k, n in lpn.bwd_launches.items()},
             'k3': dict(pcl.conv_launches), 'k4': dict(pcl.dz_launches)}
+
+
+def read_cases():
+    """Every kernel's launches by (kernel, dtype name, shape, case), as the
+    wrappers count them (``launches_by_case``)."""
+    import neuron_gan_tpu_torch.ops.lrelu_pixel_norm as lpn
+    import neuron_gan_tpu_torch.ops.packed_conv_lrelu_pn as pcl
+    return lpn.launches_by_case + pcl.launches_by_case
 
 
 def train(torch, seed, cfg, name):
@@ -774,6 +936,7 @@ def train(torch, seed, cfg, name):
     # steady 512^2 throughput: the runner at the schedule's last chunk
     spec = spec_for_chunk(sched, sched.n_epochs, base)
     run = make_epoch_runner(cfg, spec, n_timed_epochs)
+    before = read_cases()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     stats = run(state, images, rng, sched.n_epochs + 1).cpu().numpy()
@@ -783,6 +946,17 @@ def train(torch, seed, cfg, name):
     launches = read_counters()
     want = expected_launches(cfg, step_phases)
     assert launches == want, (name, launches, want)
+    # every kernel per steady step by shape and case (K1/K2: grouping;
+    # K4: r's cotangent live or absent), against the path's launch sites
+    # (which the CPU tests hold against expected_launches)
+    n_steady = steps_per_epoch * n_timed_epochs
+    steady = read_cases()
+    steady.subtract(before)
+    per_step = {key: n / n_steady for key, n in steady.items() if n}
+    dt_name = str(cfg.dtype).removeprefix('torch.')
+    want_sites = {(k, dt_name, shape, case): float(n)
+                  for (k, shape, case), n in steady_step_sites(name).items()}
+    assert per_step == want_sites, (name, per_step, want_sites)
 
     with torch.no_grad():
         z = torch.randn(8, cfg.latent_dim, generator=rng, device='cuda')
@@ -797,6 +971,9 @@ def train(torch, seed, cfg, name):
         'steady_512_steps_per_s': steps_per_epoch * n_timed_epochs / dt,
         'steady_512_stats': stats.mean(axis=0).tolist(),
         'launches': launches,
+        'launches_per_steady_step': [
+            {'kernel': k, 'dtype': d, 'x': list(shape), 'case': c, 'n': n}
+            for (k, d, shape, c), n in sorted(per_step.items(), key=str)],
         'peak_mem_gib': torch.cuda.max_memory_allocated() / 2 ** 30,
     }
 
@@ -836,10 +1013,11 @@ def _faults(torch, cfg):
         real = pcl.PackedConvLReluPN.backward
 
         def no_ct_r(ctx, ct_y, ct_r):
-            return real(ctx, ct_y, torch.zeros_like(ct_r))
+            return real(ctx, ct_y, None)
 
         def dz_no_second_order(ctx, ct):
-            return (*(torch.zeros_like(t) for t in ctx.saved_tensors), None)
+            return (*(None if t is None else torch.zeros_like(t)
+                      for t in ctx.saved_tensors), None)
 
         return {
             'ct_r_dropped': [mock.patch.object(
@@ -1004,6 +1182,15 @@ def main():
                                     or 'entry function' in ln]}
                       for n, (s, log) in built.items()}})
 
+    # the main paths first: their steps/s windows run in a process in which
+    # the profiler (device_ms) has not run yet
+    paths = {'unpacked': flagship_config(), 'packed': flagship_packed_config(),
+             'mixed': flagship_mixed_config()}
+    trained = {}
+    for name, cfg in paths.items():
+        trained[name] = train(torch, args.seed, cfg, name)
+        emit(trained[name])
+
     epi = check_epilogue_kernels(torch, lpn, args.seed)
     emit({'phase': 'kernels', 'pair': 'lrelu_pixel_norm', **epi})
     conv = check_packed_kernels(torch, pcl, args.seed)
@@ -1011,14 +1198,10 @@ def main():
     conv16 = check_packed_kernels_bf16(torch, pcl, args.seed)
     emit({'phase': 'kernels', 'pair': 'packed_conv_lrelu_pn',
           'dtype': 'bfloat16', **conv16})
+    dz = check_dz_kernel(torch, pcl, args.seed)
+    emit({'phase': 'kernels', 'kernel': 'packed_dz', **dz})
 
-    paths = {'unpacked': flagship_config(), 'packed': flagship_packed_config(),
-             'mixed': flagship_mixed_config()}
     emit(check_boundaries(torch, args.seed, paths['mixed']))
-    trained = {}
-    for name, cfg in paths.items():
-        trained[name] = train(torch, args.seed, cfg, name)
-        emit(trained[name])
     raw = torch.from_numpy(np.random.default_rng(args.seed + 1).random(
         (8, 768, 768, 1)).astype(np.float32)).to('cuda')
     for name, cfg in paths.items():
@@ -1042,22 +1225,50 @@ def main():
     for key in ('k1', 'k2'):
         assert by_path[key, 'float32']['unpacked'] > 0, (key, by_path)
 
+    # per steady 512^2 step of a path: a kernel's launches as the train
+    # phase counted them, and the sum of their bounds
+    k3_bound = {(dt, tuple(e['x'])): e['bound_ms']
+                for dt, cv in (('float32', conv), ('bfloat16', conv16))
+                for e in cv['conv_by_shape']}
+
+    def site_bound_ms(key, dtype, shape, case):
+        item = 4 if dtype == 'float32' else 2
+        if key in ('k1', 'k2'):
+            return epilogue_bound_ms(key, shape, item)
+        if key == 'k3':
+            return k3_bound[dtype, shape]
+        return dz_bound_ms(shape, item, live=case == 'live')
+
+    def per_step(path, key, dtype):
+        sites = [e for e in trained[path]['launches_per_steady_step']
+                 if e['kernel'] == key and e['dtype'] == dtype]
+        return {'path': path, 'launches': sum(e['n'] for e in sites),
+                'bound_ms': sum(e['n'] * site_bound_ms(
+                    key, dtype, tuple(e['x']), e['case']) for e in sites)}
+
     def row(name, src, replaces, key, dtype, err, ms, plain_ms, bound_ms,
-            bound_by, library_ms):
+            bound_by, library_ms, **extra):
         counts = by_path[key, dtype]
+        path = 'packed' if dtype == 'float32' else 'mixed'
+        steps = [per_step(path, key, dtype)]
+        if key in ('k1', 'k2') and dtype == 'float32':
+            steps.append(per_step('unpacked', key, dtype))
         return {'name': name, 'route': 'cuda', 'dtype': dtype,
                 'source': f'neuron_gan_tpu_torch/csrc/{src}.cu',
                 'replaces': f'neuron_gan_tpu/ops/{replaces}',
-                'launches': counts['packed' if dtype == 'float32' else 'mixed'],
+                'launches': counts[path],
                 'launches_by_path': counts, 'max_abs_err': err,
                 'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
-                'bound_by': bound_by, 'library_ms': library_ms}
+                'bound_by': bound_by, 'library_ms': library_ms,
+                'per_steady_step': steps, **extra}
 
     rows = []
     for dt, sfx, cv in (('float32', '', conv), ('bfloat16', '_bf16', conv16)):
         e_err, c_err = epi['max_abs_err'], cv['max_abs_err']
         k3_err = (max(c_err['conv'], c_err['r']) if dt == 'float32'
                   else c_err['conv'])
+        k4_largest, = [e for e in dz['by_shape'] if e['dtype'] == dt
+                       and e['y'] == cv['timed_x']]
         rows += [
             row('lrelu_pixel_norm_fwd', 'lrelu_pixel_norm',
                 'pallas_kernels.py:65', 'k1', dt, e_err['fwd' + sfx],
@@ -1072,9 +1283,14 @@ def main():
                 cv['conv_plain_ms'], cv['bound_ms']['conv'],
                 cv['bound_by']['conv'], cv['conv_library_ms']),
             row('packed_conv_lrelu_pn_dz', 'packed_conv_lrelu_pn',
-                'pallas_conv.py:119', 'k4', dt, c_err['dz'], cv['dz_ms'],
-                cv['dz_plain_ms'], cv['bound_ms']['dz'],
-                cv['bound_by']['dz'], None),
+                'pallas_conv.py:119', 'k4', dt,
+                max(c_err['dz'], dz['max_abs_err'][dt]), k4_largest['ms'],
+                k4_largest['plain_ms'], k4_largest['bound_ms'], 'bytes', None,
+                regs=k4_largest['regs'],
+                by_shape=[{k: e[k] for k in (
+                    'y', 'ms', 'ms_ct_r_absent', 'plain_ms', 'bound_ms',
+                    'bound_ms_ct_r_absent', 'regs')}
+                    for e in dz['by_shape'] if e['dtype'] == dt]),
         ]
     emit({'kernels': rows, 'seconds': round(time.perf_counter() - t_start, 1)})
     print(smi, flush=True)

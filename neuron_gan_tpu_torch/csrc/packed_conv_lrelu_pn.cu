@@ -36,8 +36,7 @@
 // of TF32, against 277 MB of activations (x read once, y and r written
 // once), 0.083 ms at 3.35 TB/s.  bfloat16: one product, 0.010 ms at 989
 // TFLOP/s, against 143 MB, 0.043 ms.  So the kernel is bound by its bytes
-// in both types.  The dz kernel is bound by its bytes (y, ct_y and dz once
-// each, r and ct_r once each): 419 MB in float32, 218 MB in bfloat16.
+// in both types.
 //
 // Forward design, both types.
 // - A block is an 8 x 16 tile of output pixels of one image, for all four
@@ -92,9 +91,37 @@
 // channel stride 8 (mod 32) halves: a load's 4 channels (2 apart) x 8
 // pixels then hit distinct banks.
 //
-// dz design: one thread per (batch, pixel), walking each group's channels
-// at stride H*W twice (the sum t, then dz), as the LeakyReLU+PixelNorm
-// backward kernel does: every access is coalesced across the warp.
+// dz (replaces _dz_kernel).  Bound: it reads y, ct_y (B, N, H, W) and r,
+// ct_r (B, 4, H, W) once each and writes dz once -- at y (8, 64, 256,
+// 256) 218 MB in bfloat16, 419 MB in float32: 0.065 / 0.125 ms at 3.35
+// TB/s -- and does about 12 float32 operations per element of y, 2 per
+// byte in bfloat16, where the card's float32 pipes do 20 per byte of
+// memory traffic: it is bound by its bytes at every shape.  Design:
+// - Fixed widths: C = N / 4 is a template argument (4, 8, 16 or 32, the
+//   forward's widths), so every channel loop unrolls.
+// - Work item: a thread takes one 16-byte vector of V consecutive pixels
+//   (V = 4 in float32, 8 in bfloat16) of S = min(C, 8) channels of one
+//   group, and keeps the slice's y and ct_y in registers (64 values in
+//   float32, 128 in bfloat16).  The L = C / S threads of one (pixel
+//   vector, group) are consecutive lanes of a warp and add up t with
+//   __shfl_xor_sync: each its slice's sum in channel order, then a
+//   butterfly over the L lanes (packed_dz_sliced in
+//   ops/packed_conv_lrelu_pn.py sums in this order).  L <= 4, so a warp's
+//   load instruction covers 32 / L consecutive vectors of each of L
+//   channel rows: whole 128-byte lines.  In bfloat16, S = 4 (half lines,
+//   twice the warps: 1,024 at y (8, 128, 32, 32) against 512) ran slower
+//   at three of the four path shapes on an H100 (PERF.md).  Blocks of 128
+//   threads; grid (pixel vectors * L / 128, B * 4).
+// - One pass: y, ct_y, r and ct_r are read once each with streaming loads
+//   (__ldcs), dz written once (__stcs).  s's reciprocal is computed once
+//   per pixel in each thread (correctly rounded), and u = y * (1 / s) in
+//   place of the division, within the plain version's tolerances.
+//   Indices are 32-bit: the launcher checks that every offset fits.
+// - A tail in the same kernel: when H*W is not a multiple of V or a base
+//   pointer is not 16-byte aligned, each thread takes the same V pixels
+//   with scalar loads and stores, masked at H*W.
+// - ct_r may be null (r has no cotangent, as in every first-order pass):
+//   the kernel then adds 0, and no zero tensor is filled to be read.
 //
 // Entry points have a plain C interface (loaded with ctypes); each returns
 // the cudaError_t of its launch, 0 on success.  They launch on the stream
@@ -111,7 +138,7 @@ constexpr int kTileW = 16;  // output pixels of a row: one m16 tile
 constexpr int kChunk = 16;  // input channels of a stage
 constexpr int kStages = 3;  // the cp.async ring
 constexpr int kThreads = kTileH * 32;   // warp w: tile row w
-constexpr int kDzThreads = 256;
+constexpr int kDzThreads = 128;
 
 // dtype codes shared with ops/packed_conv_lrelu_pn.py
 constexpr int kFloat32 = 0;
@@ -121,10 +148,6 @@ __device__ __forceinline__ float lrelu(float v, float slope) {
   return v >= 0.0f ? v : v * slope;
 }
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 __device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
@@ -632,33 +655,150 @@ split_weights_kernel(const float* __restrict__ wc,
   wf[e] = Taps::weights(wc, k0, s, j, e - s * Taps::kWs - j * kPerSlot);
 }
 
-template <typename T>
+// ---------------------------------------------------------------------------
+// the dz kernel
+// ---------------------------------------------------------------------------
+
+// A dz thread's work for type T and group width C (see the note above): V
+// pixels (16 bytes of one channel row) of S channels of one group; L
+// threads, consecutive lanes, share the pixel vector.
+template <typename T, int C>
+struct DzShape {
+  static constexpr int V = 16 / (int)sizeof(T);
+  static constexpr int S = C < 8 ? C : 8;
+  static constexpr int L = C / S;
+  static_assert(C % S == 0 && 32 % L == 0 && kDzThreads % L == 0,
+                "a pixel vector's lanes lie in one warp");
+};
+
+// 16 bytes at p (16-byte aligned), streamed, as float32 values
+template <int N>
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; i += 4) {
+    const float4 q = __ldcs(reinterpret_cast<const float4*>(p + i));
+    v[i] = q.x;
+    v[i + 1] = q.y;
+    v[i + 2] = q.z;
+    v[i + 3] = q.w;
+  }
+}
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
+                                         float (&v)[8]) {
+  const uint4 q = __ldcs(reinterpret_cast<const uint4*>(p));
+  const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[4]) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+}
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p,
+                                          const float (&v)[8]) {
+  __stcs(reinterpret_cast<uint4*>(p),
+         make_uint4(pack2(bf16_bits(v[0]), bf16_bits(v[1])),
+                    pack2(bf16_bits(v[2]), bf16_bits(v[3])),
+                    pack2(bf16_bits(v[4]), bf16_bits(v[5])),
+                    pack2(bf16_bits(v[6]), bf16_bits(v[7]))));
+}
+__device__ __forceinline__ float load_one(const float* p) { return __ldcs(p); }
+__device__ __forceinline__ float load_one(const __nv_bfloat16* p) {
+  return __uint_as_float(
+      (uint32_t)__ldcs(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+__device__ __forceinline__ void store_one(float* p, float v) { __stcs(p, v); }
+__device__ __forceinline__ void store_one(__nv_bfloat16* p, float v) {
+  __stcs(reinterpret_cast<unsigned short*>(p), bf16_bits(v));
+}
+
+// Grid (ceil(n_vec * L / kDzThreads), B * 4): blockIdx.y = image * 4 +
+// group, and thread t of the row takes pixel vector t / L (n_vec of them,
+// the last one partial where H*W is not a multiple of V) and slice t % L.
+// ``aligned``: H*W is a multiple of V and every pointer 16-byte aligned.
+template <typename T, int C>
 __global__ void __launch_bounds__(kDzThreads)
 packed_dz_kernel(const T* __restrict__ y, const float* __restrict__ r,
                  const T* __restrict__ g, const float* __restrict__ ct_r,
-                 T* __restrict__ dz, int64_t n_pix, int64_t hw,
-                 int64_t c_group, float slope) {
-  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n_pix) return;
-  const int64_t b = p / hw;
-  const int64_t pix = p - b * hw;
-  const float fc = (float)c_group;
-  for (int grp = 0; grp < 4; ++grp) {
-    const int64_t gi = (b * 4 + grp) * hw + pix;
-    const int64_t base = (b * 4 + grp) * c_group * hw + pix;
-    const float s = r[gi];
-    float t = 0.0f;
-    for (int64_t c = 0; c < c_group; ++c) {
-      const int64_t i = base + c * hw;
-      t += load_f32(g + i) * (load_f32(y + i) / s);
+                 T* __restrict__ dz, int hw, int n_vec, bool aligned,
+                 float slope) {
+  using Shape = DzShape<T, C>;
+  constexpr int V = Shape::V, S = Shape::S, L = Shape::L;
+  const int t = blockIdx.x * kDzThreads + threadIdx.x;
+  const int p0 = (t / L) * V;
+  // the L lanes of a vector are live together, and every lane takes part
+  // in the shuffles
+  const bool live = t / L < n_vec;
+  const int ri = blockIdx.y * hw + p0;                     // r, ct_r
+  const int yi = (blockIdx.y * C + (t % L) * S) * hw + p0;  // y, g, dz
+
+  float s[V], ctr[V], u[S][V], gv[S][V];
+  if (aligned && live) {
+    load_vec(r + ri, s);
+    if (ct_r != nullptr) {
+      load_vec(ct_r + ri, ctr);
+    } else {
+#pragma unroll
+      for (int v = 0; v < V; ++v) ctr[v] = 0.0f;
     }
-    t += ct_r[gi];
-    const float k = s * s * s * (t / fc);
-    for (int64_t c = 0; c < c_group; ++c) {
-      const int64_t i = base + c * hw;
-      const float u = load_f32(y + i) / s;
-      const float du = load_f32(g + i) * s - u * k;
-      store_f32(dz + i, u >= 0.0f ? du : du * slope);
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      load_vec(y + yi + i * hw, u[i]);
+      load_vec(g + yi + i * hw, gv[i]);
+    }
+  } else {
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const bool in = live && p0 + v < hw;
+      s[v] = in ? load_one(r + ri + v) : 1.0f;
+      ctr[v] = in && ct_r != nullptr ? load_one(ct_r + ri + v) : 0.0f;
+#pragma unroll
+      for (int i = 0; i < S; ++i) {
+        u[i][v] = in ? load_one(y + yi + i * hw + v) : 0.0f;
+        gv[i][v] = in ? load_one(g + yi + i * hw + v) : 0.0f;
+      }
+    }
+  }
+
+  // t = sum_group ct_y * u + ct_r: the slice's sum, then the butterfly
+  float inv[V], k[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    inv[v] = __frcp_rn(s[v]);
+    k[v] = 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < S; ++i)
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      u[i][v] *= inv[v];
+      k[v] += gv[i][v] * u[i][v];
+    }
+#pragma unroll
+  for (int m = 1; m < L; m *= 2)
+#pragma unroll
+    for (int v = 0; v < V; ++v) k[v] += __shfl_xor_sync(0xffffffffu, k[v], m);
+#pragma unroll
+  for (int v = 0; v < V; ++v)
+    k[v] = s[v] * s[v] * s[v] * ((k[v] + ctr[v]) * (1.0f / C));
+  if (!live) return;
+
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    float d[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const float du = gv[i][v] * s[v] - u[i][v] * k[v];
+      d[v] = u[i][v] >= 0.0f ? du : du * slope;
+    }
+    if (aligned) {
+      store_vec(dz + yi + i * hw, d);
+    } else {
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        if (p0 + v < hw) store_one(dz + yi + i * hw + v, d[v]);
     }
   }
 }
@@ -699,8 +839,32 @@ cudaError_t launch_fwd(const void* x, const float* wc, void* scratch, void* y,
   return cudaGetLastError();
 }
 
+template <typename T, int C>
+cudaError_t launch_dz(const void* y, const float* r, const void* g,
+                      const float* ct_r, void* dz, int64_t batch, int64_t hw,
+                      float slope, cudaStream_t stream) {
+  using Shape = DzShape<T, C>;
+  const int64_t n_vec = (hw + Shape::V - 1) / Shape::V;
+  const int64_t blocks = (n_vec * Shape::L + kDzThreads - 1) / kDzThreads;
+  // 32-bit indices: every offset a thread forms, past the end included
+  if (batch * 4 > 65535 ||
+      batch * 4 * C * hw + 2 * kDzThreads * Shape::V > 0x7fffffff)
+    return cudaErrorInvalidValue;
+  if (blocks == 0 || batch == 0) return cudaSuccess;
+  const bool aligned =
+      hw % Shape::V == 0 &&
+      ((uintptr_t)y | (uintptr_t)r | (uintptr_t)g | (uintptr_t)ct_r |
+       (uintptr_t)dz) % 16 == 0;
+  const dim3 grid((unsigned)blocks, (unsigned)(batch * 4));
+  packed_dz_kernel<T, C><<<grid, kDzThreads, 0, stream>>>(
+      (const T*)y, r, (const T*)g, ct_r, (T*)dz, (int)hw, (int)n_vec, aligned,
+      slope);
+  return cudaGetLastError();
+}
+
 // f.template operator()<Taps>() for the kernel of (N, dtype), or ``bad``
-// for one it does not take.
+// for one it does not take.  The dz kernel takes the same (N, dtype) and
+// reads Taps::T and Taps::C alone.
 template <class R, class F>
 R dispatch(int64_t n_out, int dtype, R bad, F f) {
   if (dtype == kFloat32) {
@@ -745,6 +909,33 @@ struct LaunchFwd {
   int operator()() const {
     return (int)launch_fwd<Taps>(x, wc, scratch, y, r, batch, k_in, height,
                                  width, slope, eps, stream);
+  }
+};
+
+struct LaunchDz {
+  const void* y;
+  const float* r;
+  const void* g;
+  const float* ct_r;
+  void* dz;
+  int64_t batch, hw;
+  float slope;
+  cudaStream_t stream;
+  template <class Taps>
+  int operator()() const {
+    return (int)launch_dz<typename Taps::T, Taps::C>(y, r, g, ct_r, dz, batch,
+                                                     hw, slope, stream);
+  }
+};
+
+struct DzRegs {
+  template <class Taps>
+  int operator()() const {
+    cudaFuncAttributes attr;
+    if (cudaFuncGetAttributes(
+            &attr, packed_dz_kernel<typename Taps::T, Taps::C>) != cudaSuccess)
+      return -1;
+    return attr.numRegs;
   }
 };
 
@@ -793,29 +984,23 @@ extern "C" int packed_conv_lrelu_pn_fwd(const void* x, const void* wc,
 }
 
 // y, g, dz (B, N, H, W), float32 (dtype 0) or bfloat16 (dtype 1); r, ct_r
-// (B, 4, H, W) float32.
+// (B, 4, H, W) float32, ct_r null for a zero cotangent of r.  N must be
+// 16, 32, 64 or 128 (the forward's widths).  Any alignment and H*W are
+// taken: the kernel loads 16 bytes at a time where every pointer is
+// 16-byte aligned and H*W a multiple of 16 bytes' pixels, else one value.
 extern "C" int packed_conv_lrelu_pn_dz(const void* y, const void* r,
                                        const void* g, const void* ct_r,
                                        void* dz, int64_t batch, int64_t n_out,
                                        int64_t hw, float slope, int dtype,
                                        void* stream) {
-  if (batch < 0 || hw < 0 || n_out <= 0 || n_out % 4 != 0)
-    return (int)cudaErrorInvalidValue;
-  const int64_t n_pix = batch * hw;
-  const int64_t blocks = (n_pix + kDzThreads - 1) / kDzThreads;
-  if (blocks == 0) return 0;
-  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == kFloat32) {
-    packed_dz_kernel<float><<<(unsigned)blocks, kDzThreads, 0, s>>>(
-        (const float*)y, (const float*)r, (const float*)g, (const float*)ct_r,
-        (float*)dz, n_pix, hw, n_out / 4, slope);
-  } else if (dtype == kBFloat16) {
-    packed_dz_kernel<__nv_bfloat16><<<(unsigned)blocks, kDzThreads, 0, s>>>(
-        (const __nv_bfloat16*)y, (const float*)r, (const __nv_bfloat16*)g,
-        (const float*)ct_r, (__nv_bfloat16*)dz, n_pix, hw, n_out / 4, slope);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (batch < 0 || hw < 0) return (int)cudaErrorInvalidValue;
+  const LaunchDz launch{y, (const float*)r, g, (const float*)ct_r, dz,
+                        batch, hw, slope, (cudaStream_t)stream};
+  return dispatch(n_out, dtype, (int)cudaErrorInvalidValue, launch);
+}
+
+// Registers a thread of the dz kernel for N and the dtype code, or -1 for
+// one it does not take.
+extern "C" int packed_conv_lrelu_pn_dz_regs(int64_t n_out, int dtype) {
+  return dispatch(n_out, dtype, -1, DzRegs{});
 }

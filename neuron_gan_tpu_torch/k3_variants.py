@@ -79,35 +79,29 @@ def _substitute(src, edits):
     return src
 
 
-def build_variants():
-    """{name: ctypes library}: the committed build and every variant."""
-    out_dir = kernels.BUILD_DIR.parent / 'k3_variants'
+def build_variants(variants, out_name='k3_variants'):
+    """({name: ctypes library}, {name: ptxas register and spill lines}) of
+    csrc/packed_conv_lrelu_pn.cu with each variant's edits, built under
+    build/<out_name>/, all nvcc processes at once.  The caller sets the
+    argument types of the entry points it calls."""
+    out_dir = kernels.BUILD_DIR.parent / out_name
     out_dir.mkdir(parents=True, exist_ok=True)
     src = (kernels.SOURCE_DIR / 'packed_conv_lrelu_pn.cu').read_text()
     procs = {}
-    for name, edits in VARIANTS.items():
+    for name, edits in variants.items():
         cu = out_dir / f'{name}.cu'
         cu.write_text(_substitute(src, edits))
         procs[name] = subprocess.Popen(
             [kernels._nvcc(), *kernels.NVCC_FLAGS, '-o', str(cu.with_suffix('.so')),
              str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {'committed': pcl._lib()}
-    ptxas = {}
+    libs, ptxas = {}, {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f'{name}: nvcc exited {proc.returncode}\n{log}')
         ptxas[name] = [ln.strip() for ln in log.splitlines()
                        if 'registers' in ln or 'spill' in ln]
-        lib = ctypes.CDLL(str(out_dir / f'{name}.so'))
-        ptr, i64, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
-        i32 = ctypes.c_int
-        lib.packed_conv_lrelu_pn_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i64,
-                                                 i64, i64, i64, i64, f32, f32,
-                                                 i32, ptr]
-        lib.packed_conv_lrelu_pn_fwd_scratch.argtypes = [i64, i64, i32]
-        lib.packed_conv_lrelu_pn_fwd_scratch.restype = i64
-        libs[name] = lib
+        libs[name] = ctypes.CDLL(str(out_dir / f'{name}.so'))
     return libs, ptxas
 
 
@@ -132,7 +126,16 @@ def main():
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    libs, ptxas = build_variants()
+    libs, ptxas = build_variants(VARIANTS)
+    ptr, i64, f32, i32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_float,
+                          ctypes.c_int)
+    for lib in libs.values():
+        lib.packed_conv_lrelu_pn_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i64,
+                                                 i64, i64, i64, i64, f32, f32,
+                                                 i32, ptr]
+        lib.packed_conv_lrelu_pn_fwd_scratch.argtypes = [i64, i64, i32]
+        lib.packed_conv_lrelu_pn_fwd_scratch.restype = i64
+    libs = {'committed': pcl._lib(), **libs}
     print(json.dumps({'ptxas': ptxas}), flush=True)
     gen = torch.Generator(device='cuda').manual_seed(0)
     with precision_scope('highest'):

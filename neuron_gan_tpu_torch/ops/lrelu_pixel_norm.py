@@ -26,7 +26,8 @@ The same two Functions run on both devices; only the innermost launch
 differs.  A CPU tensor takes the plain version; a CUDA tensor launches the
 kernel, or raises if the kernel cannot take it -- never a silent fall back.
 ``fwd_launches`` and ``bwd_launches`` count kernel launches by (dtype
-name, ``n_groups``), and nothing else.
+name, ``n_groups``), and nothing else; ``launches_by_case`` counts the
+same launches by ('k1' or 'k2', dtype name, x's shape, ``n_groups``).
 """
 
 import collections
@@ -38,6 +39,7 @@ from neuron_gan_tpu_torch.runtime import kernels
 
 fwd_launches = collections.Counter()
 bwd_launches = collections.Counter()
+launches_by_case = collections.Counter()
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -143,6 +145,7 @@ def _fwd(x, n_groups, neg_slope, eps):
             _DTYPE_CODES[x.dtype], stream)
     _raise_on(rc, 'lrelu_pixel_norm forward')
     fwd_launches[dtype_name(x), n_groups] += 1
+    launches_by_case['k1', dtype_name(x), tuple(x.shape), n_groups] += 1
     return out
 
 
@@ -159,6 +162,7 @@ def _bwd(x, g, n_groups, neg_slope, eps):
             eps, _DTYPE_CODES[x.dtype], stream)
     _raise_on(rc, 'lrelu_pixel_norm backward')
     bwd_launches[dtype_name(x), n_groups] += 1
+    launches_by_case['k2', dtype_name(x), tuple(x.shape), n_groups] += 1
     return dx
 
 

@@ -34,17 +34,23 @@ Gradients mirror the JAX package's two custom VJPs:
   mirror ``packed_dz_plain`` (``_dz_pure``), so the WGAN-GP's gradient of
   a gradient composes.  Third order is not defined.
 
-``ct_r`` is zero in a first-order pass but live under the GP: the backward
-consumes the saved r, so the outer differentiation sends a cotangent into
-it, and the Function's backward runs again with that cotangent.  Unused
-outputs' cotangents arrive as zeros (``set_materialize_grads(True)``).
+``ct_r`` is absent in a first-order pass (r feeds nothing) but live under
+the GP: the backward consumes the saved r, so the outer differentiation
+sends a cotangent into it, and the Function's backward runs again with
+that cotangent.  An absent cotangent arrives as None
+(``set_materialize_grads(False)``): a None ``ct_r`` goes to ``Dz`` as None
+and to the dz kernel as a null pointer (it adds 0), so no zero tensor is
+filled for it; a None cotangent of y becomes zeros.
 
 x, y, dz and the cotangent of y are float32 or bfloat16; r, its
-cotangent and ``w_packed`` float32.  A CPU tensor takes the plain
-versions; a CUDA tensor launches the kernels or raises if they cannot take
-it -- never a silent fall back.  ``conv_launches`` and ``dz_launches``
-count kernel launches by dtype name, and nothing else; one forward launch is
-the weight split and the conv kernel after it.
+cotangent and ``w_packed`` float32; N one of ``KERNEL_WIDTHS``.  A CPU
+tensor takes the plain versions; a CUDA tensor launches the kernels or
+raises if they cannot take it -- never a silent fall back.
+``conv_launches`` and ``dz_launches`` count kernel launches by dtype name,
+and nothing else; one forward launch is the weight split and the conv
+kernel after it.  ``launches_by_case`` counts the same launches by
+(kernel, dtype name, y's shape, case): ('k3', ..., None) and ('k4', ...,
+'live' or 'absent' ct_r).
 """
 
 import collections
@@ -60,8 +66,9 @@ from neuron_gan_tpu_torch.runtime import kernels
 
 conv_launches = collections.Counter()
 dz_launches = collections.Counter()
+launches_by_case = collections.Counter()
 
-# output widths N the forward kernel is instantiated for (C = N / 4)
+# output widths N both kernels are instantiated for (C = N / 4)
 KERNEL_WIDTHS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -95,13 +102,51 @@ def packed_conv_lrelu_pn_plain(x, w_packed, neg_slope=0.2, eps=1e-8):
 def packed_dz_plain(y, r, g, ct_r, neg_slope=0.2):
     """Plain version of the dz kernel (mirror of ``_dz_pure``): dz from the
     block output y, the scales r, the cotangent g of y and the cotangent
-    ct_r of r.  Differentiable (it supplies the dz kernel's gradient)."""
+    ct_r of r (None: zero).  Differentiable (it supplies the dz kernel's
+    gradient)."""
     c = y.shape[1] // 4
     yf, gf = _groups(y.float()), _groups(g.float())
     s = r.unsqueeze(2)
     u = yf / s
-    t = torch.sum(gf * u, dim=2, keepdim=True) + ct_r.unsqueeze(2)
+    t = torch.sum(gf * u, dim=2, keepdim=True)
+    if ct_r is not None:
+        t = t + ct_r.unsqueeze(2)
     du = gf * s - u * (s ** 3) * (t / c)
+    dz = torch.where(u >= 0, du, du * neg_slope)
+    return dz.reshape(y.shape).to(y.dtype)
+
+
+def dz_slice(c):
+    """Channels S of one group that a dz kernel thread takes at group
+    width ``c``, in either dtype: S = min(c, 8)
+    (csrc/packed_conv_lrelu_pn.cu, ``DzShape``)."""
+    return min(c, 8)
+
+
+def packed_dz_sliced(y, r, g, ct_r, neg_slope=0.2):
+    """The dz kernel's arithmetic on the CPU, in its order: u = y * (1 /
+    s); t summed over each thread's slice of ``dz_slice`` channels in
+    channel order, then over the slices by a butterfly (pairs, then pairs
+    of pairs: the lanes' ``__shfl_xor_sync``), then ct_r (None: zero)
+    added; dz = lrelu'(u) * (g * s - u * k), k = s^3 * t / C.  Runs on
+    nothing on the card's main path: the CPU tests hold the kernel's
+    order against the JAX package with it."""
+    b, n, h, w = y.shape
+    c = n // 4
+    sl = dz_slice(c)
+    s = r.unsqueeze(2)
+    u = _groups(y.float()) * (1.0 / s)
+    gf = _groups(g.float())
+    gu = (gf * u).reshape(b, 4, c // sl, sl, h, w)
+    t = gu[:, :, :, 0]
+    for i in range(1, sl):
+        t = t + gu[:, :, :, i]
+    while t.shape[2] > 1:
+        t = t[:, :, 0::2] + t[:, :, 1::2]
+    if ct_r is not None:
+        t = t + ct_r.unsqueeze(2)
+    k = s * s * s * (t / c)
+    du = gf * s - u * k
     dz = torch.where(u >= 0, du, du * neg_slope)
     return dz.reshape(y.shape).to(y.dtype)
 
@@ -239,23 +284,29 @@ def _check_conv_args(x, w_packed):
 
 
 def _check_dz_args(y, r, g, ct_r):
+    """ct_r may be None (a zero cotangent of r)."""
+    given = [t for t in (y, r, g, ct_r) if t is not None]
     if y.dtype not in _DTYPE_CODES or g.dtype != y.dtype or \
-            r.dtype != torch.float32 or ct_r.dtype != torch.float32:
+            r.dtype != torch.float32 or \
+            (ct_r is not None and ct_r.dtype != torch.float32):
         raise TypeError(f'packed dz kernel takes y and g in float32 or '
                         f'bfloat16 (one dtype), r and ct_r in float32, got '
-                        f'{y.dtype}, {g.dtype}, {r.dtype}, {ct_r.dtype}')
-    for t in (y, r, g, ct_r):
+                        f'{[t.dtype for t in given]}')
+    for t in given:
         if t.device != y.device or not t.is_contiguous():
             raise ValueError('packed dz kernel inputs must be contiguous and '
                              'share a device')
     if y.dim() != 4 or y.shape[1] % 4:
         raise ValueError(f'packed dz needs y (B, 4C, H, W), got '
                          f'{tuple(y.shape)}')
-    b, _, h, w = y.shape
+    b, n, h, w = y.shape
     if g.shape != y.shape or r.shape != (b, 4, h, w) or \
-            ct_r.shape != r.shape:
+            (ct_r is not None and ct_r.shape != r.shape):
         raise ValueError('packed dz: g must match y, and r, ct_r be '
                          '(B, 4, H, W)')
+    if n not in KERNEL_WIDTHS:
+        raise ValueError(f'packed dz kernel takes N in {KERNEL_WIDTHS} '
+                         f'channels, got {n}')
 
 
 def _lib():
@@ -269,11 +320,13 @@ def _lib():
         lib.packed_conv_lrelu_pn_dz.argtypes = [ptr, ptr, ptr, ptr, ptr, i64,
                                                 i64, i64, f32, i32, ptr]
         lib.packed_conv_lrelu_pn_fwd_smem.argtypes = [i64, i32]
+        lib.packed_conv_lrelu_pn_dz_regs.argtypes = [i64, i32]
         lib.packed_conv_lrelu_pn_fwd_scratch.argtypes = [i64, i64, i32]
         lib.packed_conv_lrelu_pn_fwd_scratch.restype = i64
         lib.packed_conv_lrelu_pn_fwd.restype = ctypes.c_int
         lib.packed_conv_lrelu_pn_dz.restype = ctypes.c_int
         lib.packed_conv_lrelu_pn_fwd_smem.restype = ctypes.c_int
+        lib.packed_conv_lrelu_pn_dz_regs.restype = ctypes.c_int
     return lib
 
 
@@ -318,12 +371,12 @@ def conv_fwd_launcher(x, w_packed, neg_slope=0.2, eps=1e-8):
 
 
 def _conv_fwd(x, w_packed, neg_slope, eps):
-    global conv_launches
     if x.device.type == 'cpu':
         return packed_conv_lrelu_pn_plain(x, w_packed, neg_slope, eps)
     launch, y, r = conv_fwd_launcher(x, w_packed, neg_slope, eps)
     launch()
     conv_launches[dtype_name(x)] += 1
+    launches_by_case['k3', dtype_name(x), tuple(y.shape), None] += 1
     return y, r
 
 
@@ -333,8 +386,14 @@ def conv_fwd_smem(n, dtype=torch.float32):
     return _lib().packed_conv_lrelu_pn_fwd_smem(n, _DTYPE_CODES[dtype])
 
 
+def dz_regs(n, dtype=torch.float32):
+    """Registers a thread of the dz kernel uses for N channels and y of
+    ``dtype``."""
+    return _lib().packed_conv_lrelu_pn_dz_regs(n, _DTYPE_CODES[dtype])
+
+
 def _dz(y, r, g, ct_r, neg_slope):
-    global dz_launches
+    """dz by the kernel (ct_r None: zero, passed as a null pointer)."""
     if y.device.type == 'cpu':
         return packed_dz_plain(y, r, g, ct_r, neg_slope)
     _check_device(y)
@@ -344,11 +403,13 @@ def _dz(y, r, g, ct_r, neg_slope):
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
         rc = _lib().packed_conv_lrelu_pn_dz(
-            y.data_ptr(), r.data_ptr(), g.data_ptr(), ct_r.data_ptr(),
-            dz.data_ptr(), b, n, h * w, neg_slope, _DTYPE_CODES[y.dtype],
-            stream)
+            y.data_ptr(), r.data_ptr(), g.data_ptr(),
+            None if ct_r is None else ct_r.data_ptr(), dz.data_ptr(), b, n,
+            h * w, neg_slope, _DTYPE_CODES[y.dtype], stream)
     _raise_on(rc, 'packed_conv_lrelu_pn dz')
     dz_launches[dtype_name(y)] += 1
+    launches_by_case['k4', dtype_name(y), tuple(y.shape),
+                     'absent' if ct_r is None else 'live'] += 1
     return dz
 
 
@@ -358,7 +419,8 @@ def _dz(y, r, g, ct_r, neg_slope):
 
 class Dz(torch.autograd.Function):
     """dz = dz kernel (y, r, ct_y, ct_r); differentiable once more through
-    the plain mirror (the GP's second order)."""
+    the plain mirror (the GP's second order).  ct_r may be None (zero): it
+    then gets no gradient."""
 
     @staticmethod
     def forward(ctx, y, r, g, ct_r, neg_slope):
@@ -371,11 +433,13 @@ class Dz(torch.autograd.Function):
         if torch.is_grad_enabled():
             raise NotImplementedError(
                 'packed_conv_lrelu_pn: third-order gradients are not defined')
-        saved = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        saved = [None if t is None else t.detach().requires_grad_()
+                 for t in ctx.saved_tensors]
+        given = [t for t in saved if t is not None]
         with torch.enable_grad():
             dz = packed_dz_plain(*saved, ctx.neg_slope)
-            grads = torch.autograd.grad(dz, saved, ct)
-        return (*grads, None)
+            grads = iter(torch.autograd.grad(dz, given, ct))
+        return (*(None if t is None else next(grads) for t in saved), None)
 
 
 class PackedConvLReluPN(torch.autograd.Function):
@@ -387,13 +451,14 @@ class PackedConvLReluPN(torch.autograd.Function):
         y, r = _conv_fwd(x, w_packed, neg_slope, eps)
         ctx.save_for_backward(x, w_packed, y, r)
         ctx.neg_slope = neg_slope
-        ctx.set_materialize_grads(True)
+        ctx.set_materialize_grads(False)
         return y, r
 
     @staticmethod
     def backward(ctx, ct_y, ct_r):
         x, w_packed, y, r = ctx.saved_tensors
-        dz = Dz.apply(y, r, ct_y.contiguous(), ct_r.contiguous(),
+        ct_y = torch.zeros_like(y) if ct_y is None else ct_y.contiguous()
+        dz = Dz.apply(y, r, ct_y, None if ct_r is None else ct_r.contiguous(),
                       ctx.neg_slope)
         dx, dw, _ = torch.ops.aten.convolution_backward(
             dz, x, w_packed.to(x.dtype), None, [1, 1], [1, 1], [1, 1], False,

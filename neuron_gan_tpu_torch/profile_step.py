@@ -14,12 +14,12 @@ epochs of 2 steps each with torch.profiler, then two more with input
 shapes recorded.  Prints one JSON line per configuration: from the first
 window, wall and device time per step, the device's idle share of the
 wall time, the kernels launched per step (what a host-bound step pays
-for), device time by kind (cuDNN/ATen
-convolution, the LeakyReLU+PixelNorm kernels, the fused packed conv
-kernels K3 -- its weight split included -- and K4, the rest) and the top
-kernels by device time; from the second, the top ATen ops by the device
-time of the kernels they launch, with their input shapes; and the card's
-nvidia-smi name and power limit.
+for) and among them the fill kernels (zeros and ones tensors), device time
+and launches by kind (cuDNN/ATen convolution, the LeakyReLU+PixelNorm
+kernels K1 and K2, the fused packed conv kernels K3 -- its weight split
+included -- and K4, the rest) and the top kernels by device time; from the
+second, the top ATen ops by the device time of the kernels they launch,
+with their input shapes; and the card's nvidia-smi name and power limit.
 
 Needs a CUDA card; exits 2 without one.
 """
@@ -48,8 +48,10 @@ def _kind(name):
         return 'k3_packed_conv_fwd'
     if 'packed_dz' in low:
         return 'k4_packed_dz'
-    if 'lrelu_pn' in low:
-        return 'lrelu_pixel_norm'
+    if 'lrelu_pn_fwd' in low:
+        return 'k1_lrelu_pn_fwd'
+    if 'lrelu_pn_bwd' in low:
+        return 'k2_lrelu_pn_bwd'
     if any(k in low for k in ('conv', 'cudnn', 'xmma', 'implicit', 'winograd',
                               'fft', 'dgrad', 'wgrad', 'fprop', 'cutlass',
                               'nchwtonhwc', 'nhwctonchw')):
@@ -92,14 +94,18 @@ def profile(name, cfg, images, smi):
 
     steps = 2 * spec.n_images // spec.batch_size
     prof, wall_us = _trace(epochs(2), record_shapes=False)
-    by_kind, top, launches = {}, [], 0
+    by_kind, n_by_kind, top, launches, fills = {}, {}, [], 0, 0
     for evt in prof.key_averages():
         us = _device_us(evt)
         if us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        by_kind[_kind(evt.key)] = by_kind.get(_kind(evt.key), 0.0) + us
+        kind = _kind(evt.key)
+        by_kind[kind] = by_kind.get(kind, 0.0) + us
+        n_by_kind[kind] = n_by_kind.get(kind, 0) + evt.count
         top.append((us, evt.key, evt.count))
         launches += evt.count
+        if 'fill' in evt.key.lower():
+            fills += evt.count
     busy_us = sum(by_kind.values())
     top.sort(reverse=True)
     # a second window with input shapes recorded (which costs host time,
@@ -118,8 +124,11 @@ def profile(name, cfg, images, smi):
         'device_ms_per_step': busy_us / steps / 1e3 if busy_us else None,
         'device_idle_share': 1 - busy_us / wall_us if busy_us else None,
         'kernels_per_step': launches / steps,
+        'fill_kernels_per_step': fills / steps,
         'device_ms_per_step_by_kind': {k: v / steps / 1e3
                                        for k, v in by_kind.items()},
+        'kernels_per_step_by_kind': {k: v / steps
+                                     for k, v in n_by_kind.items()},
         'top_kernels': [{'name': n[:120], 'ms_per_step': us / steps / 1e3,
                          'calls_per_step': c / steps}
                         for us, n, c in top[:15]],

@@ -338,6 +338,44 @@ def test_dz_plain_bf16_matches_pallas():
     assert_within_ulps(nhwc(tdz.float()), f32(jdz))
 
 
+@pytest.mark.parametrize('n', pcl.KERNEL_WIDTHS)
+def test_dz_sliced_bf16_tracks_pallas(n):
+    # the dz kernel's order of summation in bfloat16: no further from the
+    # interpreted Pallas kernel in bfloat16 than that lies from itself in
+    # float32 on the same inputs, ct_r live and absent
+    h, w = 5, 8
+    y = jnp.asarray(rand((2, h, w, n), 100 + n)).astype(jnp.bfloat16)
+    g = jnp.asarray(rand((2, h, w, n), 101 + n)).astype(jnp.bfloat16)
+    r = (0.5 + np.random.default_rng(102 + n).random((2, h * w, 4))).astype(np.float32)
+
+    def r_nchw(a):
+        return torch.from_numpy(a.reshape(2, h, w, 4).transpose(0, 3, 1, 2).copy())
+
+    for ct_r in (rand((2, h * w, 4), 103 + n), None):
+        jct = jnp.asarray(np.zeros_like(r) if ct_r is None else ct_r)
+        want = _dz_call(y, jnp.asarray(r), g, jct, 0.2, 1e-8, True)
+        ref = _dz_call(y.astype(jnp.float32), jnp.asarray(r), g.astype(jnp.float32), jct,
+                       0.2, 1e-8, True)
+        got = pcl.packed_dz_sliced(torch_bf16(y), r_nchw(r), torch_bf16(g),
+                                   None if ct_r is None else r_nchw(ct_r))
+        assert got.dtype == torch.bfloat16
+        dist, own = rel_l2([nhwc(got.float())], [f32(want)]), rel_l2([f32(want)], [f32(ref)])
+        assert 0 < own and dist <= own, (dist, own)
+
+
+def test_fused_conv_bf16_absent_ct_r_equals_explicit_zeros():
+    x, wp = bf16_case(seed=104)
+    ct_y = torch_bf16(jnp.asarray(rand((2, 8, 8, 16), 105)).astype(jnp.bfloat16))
+    grads = []
+    for explicit in (False, True):
+        xt, wt = torch_bf16(x).requires_grad_(), oihw(wp).requires_grad_()
+        y, r = pcl.PackedConvLReluPN.apply(xt, wt, 0.2, 1e-8)
+        outs, cts = ((y, r), (ct_y, torch.zeros_like(r))) if explicit else ((y,), (ct_y,))
+        grads.append(torch.autograd.grad(outs, (xt, wt), cts))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
 def test_fused_conv_gp_second_order_bf16_tracks_pallas():
     # the GP-style second order of tests/test_torch_packed.py in bfloat16:
     # the port no further from JAX-bf16 than JAX-bf16 from JAX-float32

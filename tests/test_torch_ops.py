@@ -342,7 +342,8 @@ def test_epilogue_refuses_a_device_without_kernel():
 
 
 def test_cpu_launch_does_not_count():
-    before = (dict(lpn.fwd_launches), dict(lpn.bwd_launches))
+    counters = (lpn.fwd_launches, lpn.bwd_launches, lpn.launches_by_case)
+    before = [dict(c) for c in counters]
     x = torch.from_numpy(rand((1, 4, 2, 2), 8)).requires_grad_()
     port_epilogue(1)(x).sum().backward()
-    assert (dict(lpn.fwd_launches), dict(lpn.bwd_launches)) == before
+    assert [dict(c) for c in counters] == before

@@ -311,7 +311,7 @@ def test_dropping_ct_r_breaks_the_gp_second_order(monkeypatch):
     real = pcl.PackedConvLReluPN.backward
 
     def no_ct_r(ctx, ct_y, ct_r):
-        return real(ctx, ct_y, torch.zeros_like(ct_r))
+        return real(ctx, ct_y, None)
 
     x, wp, c = _gp_case()
     js, jw = _jax_gp(jnp.asarray(x), jnp.asarray(wp), jnp.asarray(c))
@@ -351,7 +351,8 @@ def test_conv_kernel_argument_checks_raise(bad):
         pcl._check_conv_args(x, w)
 
 
-@pytest.mark.parametrize('bad', ['dtype', 'contiguous', 'r_shape', 'groups'])
+@pytest.mark.parametrize('bad', ['dtype', 'contiguous', 'r_shape', 'groups',
+                                 'width'])
 def test_dz_kernel_argument_checks_raise(bad):
     y, r = torch.zeros(2, 16, 4, 4), torch.ones(2, 4, 4, 4)
     g, ct_r = torch.zeros(2, 16, 4, 4), torch.zeros(2, 4, 4, 4)
@@ -361,10 +362,22 @@ def test_dz_kernel_argument_checks_raise(bad):
         g = g.transpose(2, 3)
     elif bad == 'r_shape':
         r = torch.ones(2, 4, 16)
+    elif bad == 'width':
+        # 4 parity groups, but C = 6 is none of the kernel's widths
+        y, g = torch.zeros(2, 24, 4, 4), torch.zeros(2, 24, 4, 4)
     else:
         y, g = torch.zeros(2, 14, 4, 4), torch.zeros(2, 14, 4, 4)
     with pytest.raises((TypeError, ValueError)):
         pcl._check_dz_args(y, r, g, ct_r)
+
+
+def test_dz_kernel_argument_checks_take_absent_ct_r():
+    # a None ct_r is a zero cotangent of r (a null pointer to the kernel)
+    y, r = torch.zeros(2, 16, 4, 4), torch.ones(2, 4, 4, 4)
+    pcl._check_dz_args(y, r, y, None)
+    pcl._check_dz_args(y.bfloat16(), r, y.bfloat16(), None)
+    with pytest.raises(ValueError, match='takes N in'):
+        pcl._check_dz_args(torch.zeros(2, 8, 4, 4), r, torch.zeros(2, 8, 4, 4), None)
 
 
 def test_kernel_argument_checks_take_bfloat16():
@@ -396,11 +409,89 @@ def test_fused_conv_refuses_a_device_without_kernel():
 
 
 def test_cpu_launches_do_not_count():
-    before = (pcl.conv_launches, pcl.dz_launches)
+    before = [dict(c) for c in (pcl.conv_launches, pcl.dz_launches,
+                                pcl.launches_by_case)]
     x, wp = conv_case(seed=60)
     xt = nchw(x).requires_grad_()
     port_pair(xt, oihw(wp))[0].sum().backward()
-    assert (pcl.conv_launches, pcl.dz_launches) == before
+    assert [dict(c) for c in (pcl.conv_launches, pcl.dz_launches,
+                              pcl.launches_by_case)] == before
+
+
+# ---------------------------------------------------------------------------
+# an absent r cotangent, and the dz kernel's order of summation
+# ---------------------------------------------------------------------------
+
+def r_nchw(a, h, w):
+    """The JAX kernel's (B, H*W, 4) -> the port's (B, 4, H, W)."""
+    return torch.from_numpy(a.reshape(a.shape[0], h, w, 4).transpose(0, 3, 1, 2).copy())
+
+
+def test_dz_with_absent_ct_r_equals_explicit_zeros():
+    y, g = torch.from_numpy(rand((2, 16, 3, 5), 84)), torch.from_numpy(rand((2, 16, 3, 5), 85))
+    r = torch.from_numpy((0.5 + np.random.default_rng(86).random((2, 4, 3, 5))).astype(np.float32))
+    ct = torch.from_numpy(rand((2, 16, 3, 5), 87))
+    outs = []
+    for ct_r in (None, torch.zeros_like(r)):
+        leaves = [t.clone().requires_grad_() for t in (y, r, g)]
+        dz = pcl.Dz.apply(*leaves, ct_r, 0.2)
+        outs.append((dz, *torch.autograd.grad(dz, leaves, ct)))
+    for a, b in zip(*outs):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_fused_conv_sends_no_zero_ct_r(monkeypatch):
+    # only y feeds the loss: r's cotangent is absent and reaches the dz
+    # kernel as None; dx and dw equal those of an explicit zero cotangent
+    seen = []
+    real = pcl._dz
+
+    def spy(y, r, g, ct_r, neg_slope):
+        seen.append(ct_r)
+        return real(y, r, g, ct_r, neg_slope)
+
+    monkeypatch.setattr(pcl, '_dz', spy)
+    x, wp = conv_case(seed=88)
+    ct_y = nchw(rand((2, 8, 8, 16), 89))
+    grads = []
+    for explicit in (False, True):
+        xt, wt = nchw(x).requires_grad_(), oihw(wp).requires_grad_()
+        y, r = port_pair(xt, wt)
+        if explicit:
+            grads.append(torch.autograd.grad((y, r), (xt, wt), (ct_y, torch.zeros_like(r))))
+        else:
+            grads.append(torch.autograd.grad(y, (xt, wt), ct_y))
+    assert seen[0] is None and isinstance(seen[1], torch.Tensor)
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize('n', pcl.KERNEL_WIDTHS)
+def test_dz_sliced_matches_pallas(n):
+    # the kernel's order (slice sums, then the lanes' butterfly) against
+    # the interpreted Pallas kernel, ct_r live and absent
+    h, w = 5, 7
+    y, g = rand((2, h, w, n), 90 + n), rand((2, h, w, n), 91 + n)
+    r = (0.5 + np.random.default_rng(92 + n).random((2, h * w, 4))).astype(np.float32)
+    for ct_r in (rand((2, h * w, 4), 93 + n), None):
+        jct = np.zeros_like(r) if ct_r is None else ct_r
+        jdz = _dz_call(*(jnp.asarray(a) for a in (y, r, g, jct)), 0.2, 1e-8, True)
+        tdz = pcl.packed_dz_sliced(nchw(y), r_nchw(r, h, w), nchw(g),
+                                   None if ct_r is None else r_nchw(ct_r, h, w))
+        np.testing.assert_allclose(nhwc(tdz), np.asarray(jdz), rtol=1e-5, atol=1e-5)
+
+
+def test_dz_slice_keeps_64_values_and_a_warp_per_vector():
+    # S = min(C, 8) channels of 16 bytes of pixels a thread (y and ct_y:
+    # 64 values in float32, 128 in bfloat16); the L = C / S <= 4 threads
+    # of a vector fit a warp's butterfly, so a load covers whole lines
+    for n in pcl.KERNEL_WIDTHS:
+        c = n // 4
+        s = pcl.dz_slice(c)
+        assert c % s == 0 and (c // s) in (1, 2, 4)
+        for v in (4, 8):
+            assert 2 * s * v in (64, 128) or s == c
+    assert [pcl.dz_slice(n // 4) for n in pcl.KERNEL_WIDTHS] == [4, 8, 8, 8]
 
 
 # ---------------------------------------------------------------------------

@@ -3,6 +3,7 @@ package, its entry points default to CUDA, its kernels build from the
 repository's sources, and chip_smoke.py refuses to run without a card."""
 
 import ast
+import importlib
 import importlib.util
 import os
 import subprocess
@@ -146,6 +147,36 @@ def test_chip_smoke_parity_small_packed_on_cpu():
         assert dists[f'{fault}~float64']['D'] > out['rel_l2_bound']['D'], dists
 
 
+@pytest.mark.parametrize('path', ['unpacked', 'packed', 'mixed'])
+def test_chip_smoke_launch_sites_match_expected_launches(path):
+    # the smoke's per-shape launch sites of a steady 512^2 step sum to its
+    # launch counts by kernel and dtype; K4 runs 6/6/6/1 times a step at
+    # the four packed shapes, with a live r cotangent once per D block
+    import collections
+    from neuron_gan_tpu_torch import flagship
+    smoke = load_chip_smoke()
+    cfg = {'unpacked': flagship.flagship_config(),
+           'packed': flagship.flagship_packed_config(),
+           'mixed': flagship.flagship_mixed_config()}[path]
+    dt = str(cfg.dtype).removeprefix('torch.')
+    sites = smoke.steady_step_sites(path)
+    want = smoke.expected_launches(cfg, [cfg.n_phases - 1])
+    for key in ('k1', 'k2', 'k3', 'k4'):
+        got = collections.Counter()
+        for (k, _, case), n in sites.items():
+            if k == key:
+                got[smoke.launch_key(dt, case if key in ('k1', 'k2') else None)] += n
+        assert dict(got) == want.get(key, {}), (key, got, want)
+    k4 = collections.Counter()
+    for (k, y, case), n in sites.items():
+        if k == 'k4':
+            k4[y[1:3]] += n
+            assert case == 'absent' or y[1:3] in ((64, 128), (128, 64), (128, 32))
+    if path != 'unpacked':
+        assert k4 == {(128, 32): 6, (128, 64): 6, (64, 128): 6, (64, 256): 1}
+        assert sum(n for (k, _, c), n in sites.items() if k == 'k4' and c == 'live') == 3
+
+
 def test_kernel_sources_and_library_names():
     assert kernels.kernel_names() == ['lrelu_pixel_norm', 'packed_conv_lrelu_pn']
     path = kernels.library_path('lrelu_pixel_norm')
@@ -155,6 +186,19 @@ def test_kernel_sources_and_library_names():
     assert path == kernels.library_path('lrelu_pixel_norm')
     assert 'arch=compute_90a,code=sm_90a' in kernels.NVCC_FLAGS
     assert str(kernels.BUILD_DIR.relative_to(ROOT)) == os.path.join('build', 'kernels')
+
+
+@pytest.mark.parametrize('script', ['k3_variants', 'k4_variants'])
+def test_kernel_variants_each_edit_the_committed_source(script):
+    # every design variant still applies to the source as it stands: each
+    # of its edits matches exactly once and changes the text
+    from neuron_gan_tpu_torch import k3_variants
+    mod = importlib.import_module(f'neuron_gan_tpu_torch.{script}')
+    src = (kernels.SOURCE_DIR / 'packed_conv_lrelu_pn.cu').read_text()
+    for name, edits in mod.VARIANTS.items():
+        for old, new in edits:
+            assert src.count(old) == 1 and old != new, (name, old)
+        assert k3_variants._substitute(src, edits) != src, name
 
 
 def test_build_skips_existing_library(tmp_path, monkeypatch):
