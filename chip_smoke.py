@@ -23,13 +23,18 @@ Phases, each printing one JSON line:
               steady 512^2; stats must be finite and every kernel's launch
               counter must rise by exactly the count the path implies (by
               dtype, K1/K2 also by grouping; over the steady steps every
-              kernel also by shape, and K4 by live or absent r cotangent);
+              kernel also by shape, and K4 by live or absent r cotangent),
+              and K1/K2 launch only their template instances;
               then steps/s over steady 512^2 steps.  It runs before any
               kernel is timed: the profiler has not run in the process;
 4. kernels    each kernel against its plain PyTorch version on the card, in
               float32 and in bfloat16, at every shape a training path gives
               it (plus ragged cases): forward, backward and a GP-style
-              second order, compared in the working type; K4 also with r's
+              second order, compared in the working type; K1/K2 also at
+              group widths 1, 2 and 64, a width that takes the
+              runtime-width instance, a 2-D input of more than 65,535
+              rows and a storage offset, with each instance's registers
+              and slice width read from the library; K4 also with r's
               cotangent absent, at H*W off its 16-byte vectors and on
               tensors with a storage offset; the packed conv forward (K3)
               also against a float64 run at the largest shape.  Device
@@ -71,6 +76,9 @@ from unittest import mock
 
 import numpy as np
 
+from neuron_gan_tpu_torch.flagship import (
+    D_SHAPES, G_SHAPES, PACKED_SHAPES, UNPACKED_OF_PACKED, epilogue_shapes,
+    steady_step_sites)
 from neuron_gan_tpu_torch.runtime.timing import device_ms
 
 
@@ -105,69 +113,6 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 TF32_OPS_PER_S = 495e12     # H100 SXM TF32 tensor cores, dense
 BF16_OPS_PER_S = 989e12     # H100 SXM bfloat16 tensor cores, dense
-
-# every LReLU + PixelNorm epilogue shape of the unpacked flagship path at
-# batch 8: G blocks (C, R) and D blocks (C, R)
-G_SHAPES = [(64, 32), (32, 64), (32, 128), (16, 256), (16, 512)]
-D_SHAPES = [(16, 256), (32, 128), (32, 64), (64, 32), (128, 16)]
-# every packed conv2 of the packed flagship path at batch 8, (N, packed
-# side): G blocks 1-4, then D blocks 0-2; K = N.  The packed conv1
-# epilogues (K1 at 4 groups) take the same shapes.
-PACKED_SHAPES = [(128, 32), (128, 64), (64, 128), (64, 256),
-                 (64, 128), (128, 64), (128, 32)]
-# the unpacked epilogues of the packed and mixed paths (C, R): G block 0,
-# D blocks 3 and 4; the mixed path gives K1-K4 the packed path's shapes
-UNPACKED_OF_PACKED = [(64, 32), (64, 32), (128, 16)]
-
-
-def steady_step_sites(path):
-    """Every kernel launch of one steady 512^2 step of a path ('unpacked',
-    'packed' or 'mixed'), as {(kernel, shape, case): launches}: K1/K2 at
-    (8, C, R, R) with case = the grouping, K3 at y's shape with case None,
-    K4 at y's shape with case 'live' or 'absent' (r's cotangent).  G runs
-    3 forwards and 1 backward a step, D 4 and 5 (``expected_launches``);
-    an unpacked block has two K1 epilogues, a packed one a K1 at 4 groups
-    and a K3; a K4 runs in each backward of a K3, with a live ct_r in D's
-    GP outer pass alone."""
-    sites = collections.Counter()
-
-    def unpacked(c, r, fwd, bwd):
-        sites['k1', (8, c, r, r), 1] += 2 * fwd
-        sites['k2', (8, c, r, r), 1] += 2 * bwd
-
-    def packed(n, s, fwd, bwd, live):
-        y = (8, n, s, s)
-        sites['k1', y, 4] += fwd
-        sites['k2', y, 4] += bwd
-        sites['k3', y, None] += fwd
-        sites['k4', y, 'absent'] += bwd - live
-        if live:
-            sites['k4', y, 'live'] += live
-
-    if path == 'unpacked':
-        for c, r in G_SHAPES:
-            unpacked(c, r, 3, 1)
-        for c, r in D_SHAPES:
-            unpacked(c, r, 4, 5)
-    else:
-        unpacked(*UNPACKED_OF_PACKED[0], 3, 1)
-        for c, r in UNPACKED_OF_PACKED[1:]:
-            unpacked(c, r, 4, 5)
-        for n, s in PACKED_SHAPES[:4]:
-            packed(n, s, 3, 1, 0)
-        for n, s in PACKED_SHAPES[4:]:
-            packed(n, s, 4, 5, 1)
-    return dict(sites)
-
-
-def epilogue_shapes(dtype):
-    """(x shape, grouping) of every K1/K2 launch of the paths that run
-    them in ``dtype`` (float32: unpacked and packed; bfloat16: mixed)."""
-    import torch
-    paths = ('unpacked', 'packed') if dtype == torch.float32 else ('mixed',)
-    return {(shape, case) for p in paths
-            for (k, shape, case) in steady_step_sites(p) if k == 'k1'}
-
 
 def epilogue_bound_ms(kernel, shape, itemsize):
     """Least time of K1 (x read, y written, about 6 float32 operations an
@@ -213,6 +158,17 @@ def rel_l2(xs, ys):
     return (num / den).sqrt().item()
 
 
+def at_offset(torch, t, offset):
+    """t's values in a view ``offset`` elements into its storage (t itself
+    for 0): off 16-byte alignment, the kernels' scalar path."""
+    if not offset:
+        return t
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 # ---------------------------------------------------------------------------
 # phase 4: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -223,32 +179,58 @@ def check_epilogue_kernels(torch, lpn, seed):
     scale (both compute in float32 and round once)."""
     gen = torch.Generator(device='cuda').manual_seed(seed)
     dev = 'cuda'
+    # largest errors: absolute on inputs of unit scale; width 2's float32
+    # dx by relative L2; the small-x width-1 case relative to max |ref|
     err = {'fwd': 0.0, 'bwd': 0.0, 'fwd_bf16': 0.0, 'bwd_bf16': 0.0,
-           'gp_bf16_rel_l2': 0.0}
+           'gp_bf16_rel_l2': 0.0, 'bwd_rel_l2': 0.0, 'small_x_rel': 0.0}
     checked = []
 
     def randn(shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    def check(shape, n_groups, dtype, tol_f, tol_b):
-        x, g = randn(shape, dtype), randn(shape, dtype)
+    def check(shape, n_groups, dtype, tol_f, tol_b, offset=False,
+              x_scale=1.0, dx_rel_l2=None):
+        x, g = (randn(shape) * x_scale).to(dtype), randn(shape, dtype)
+        if offset:
+            x, g = at_offset(torch, x, 1), at_offset(torch, g, 1)
+            assert x.data_ptr() % 16 and g.data_ptr() % 16
+        before = collections.Counter(lpn.launches_by_case)
         out = lpn._fwd(x, n_groups, 0.2, 1e-8)
         dx = lpn._bwd(x, g, n_groups, 0.2, 1e-8)
         torch.cuda.synchronize()
+        # the instance the rule picks for this width launched
+        runtime = lpn.kernel_instance(shape[1] // n_groups, dtype)[0] is None
+        cases = lpn.launches_by_case - before
+        assert cases == {(f'k{i}{"/runtime" if runtime else ""}', str(dtype)
+                          .removeprefix('torch.'), tuple(shape), n_groups): 1
+                         for i in (1, 2)}, cases
         ref = lpn.lrelu_pixel_norm_plain(x, n_groups)
         ref_dx = lpn.lrelu_pixel_norm_bwd_plain(x, g, n_groups)
         assert out.dtype == dtype and dx.dtype == dtype
+        sfx = '' if dtype == torch.float32 else '_bf16'
         if dtype == torch.float32:
             torch.testing.assert_close(out, ref, **tol_f)
-            torch.testing.assert_close(dx, ref_dx, **tol_b)
-            err['fwd'] = max(err['fwd'], (out - ref).abs().max().item())
-            err['bwd'] = max(err['bwd'], (dx - ref_dx).abs().max().item())
+            e_f, e_b = (out - ref).abs().max().item(), 0.0
+            if dx_rel_l2 is None:
+                torch.testing.assert_close(dx, ref_dx, **tol_b)
+                e_b = (dx - ref_dx).abs().max().item()
+            else:
+                dist = rel_l2([dx], [ref_dx])
+                assert dist <= dx_rel_l2, (shape, n_groups, dist)
+                err['bwd_rel_l2'] = max(err['bwd_rel_l2'], dist)
         else:
-            err['fwd_bf16'] = max(err['fwd_bf16'], within_ulps(torch, out, ref))
-            err['bwd_bf16'] = max(err['bwd_bf16'],
-                                  within_ulps(torch, dx, ref_dx))
+            e_f = within_ulps(torch, out, ref)
+            e_b = within_ulps(torch, dx, ref_dx)
+        if x_scale != 1.0:
+            err['small_x_rel'] = max(
+                err['small_x_rel'], e_f / ref.float().abs().max().item(),
+                e_b / ref_dx.float().abs().max().item())
+        else:
+            err['fwd' + sfx] = max(err['fwd' + sfx], e_f)
+            err['bwd' + sfx] = max(err['bwd' + sfx], e_b)
         checked.append({'shape': list(shape), 'n_groups': n_groups,
-                        'dtype': str(dtype).replace('torch.', '')})
+                        'dtype': str(dtype).replace('torch.', ''),
+                        'runtime_width': runtime, 'offset': offset})
 
     f32_f = dict(rtol=1e-5, atol=1e-6)
     f32_b = dict(rtol=1e-4, atol=1e-5)
@@ -264,6 +246,41 @@ def check_epilogue_kernels(torch, lpn, seed):
     for n, s in sorted(set(PACKED_SHAPES)):
         check((8, n, s, s), 4, torch.bfloat16, None, None)
     check((3, 16, 5, 7), 1, torch.bfloat16, None, None)
+    check((8, 64, 16, 16), 8, torch.bfloat16, None, None)
+    # the instances no path shape reaches, in both dtypes: group widths 1,
+    # 2, 64 (and 8 above); a width with no template instance (24: the
+    # runtime-width one); H*W off the 16-byte vector; a 2-D (rows, C) input
+    # with more rows than a grid's y dimension takes; a storage offset.
+    # Over one or two channels dx = g * r - y * k cancels where g lies
+    # along y (at width 1 always: rounding noise of size g * r unless y^2
+    # is of eps's order), so width 1 takes x of scale 1e-4 and width 2's
+    # float32 dx is held as one vector, by relative L2 (float32 rounding,
+    # 100x over)
+    for dtype, tf, tb in ((torch.float32, f32_f, f32_b),
+                          (torch.bfloat16, None, None)):
+        check((8, 4, 32, 32), 4, dtype, tf, tb, x_scale=1e-4)
+        check((8, 8, 32, 32), 4, dtype, tf, tb, dx_rel_l2=1e-5)
+        check((8, 256, 16, 16), 4, dtype, tf, tb)
+        check((8, 96, 16, 16), 4, dtype, tf, tb)
+        check((3, 96, 5, 7), 4, dtype, tf, tb)
+        check((2, 64, 9, 33), 4, dtype, tf, tb)
+        check((70000, 32), 1, dtype, tf, tb)
+        check((70000, 32), 4, dtype, tf, tb)
+        check((8, 128, 32, 32), 4, dtype, tf, tb, offset=True)
+        check((3, 16, 5, 7), 1, dtype, tf, tb, offset=True)
+
+    # each instance's registers (-Xptxas -v's count, read from the built
+    # library) and slice S, which must be the instance rule's
+    instances = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).removeprefix('torch.')
+        for c_g in lpn.TEMPLATE_WIDTHS + (24,):
+            width, s = lpn.kernel_instance(c_g, dtype)
+            assert lpn.kernel_slice(c_g, dtype) == (s if width else 0), (
+                dt, c_g, lpn.kernel_slice(c_g, dtype))
+            instances[f'{dt}/{width or "runtime"}'] = {
+                'slice': s, 'fwd_regs': lpn.kernel_regs(c_g, dtype),
+                'bwd_regs': lpn.kernel_regs(c_g, dtype, bwd=True)}
 
     # GP-style second order through the autograd Functions: the gradient
     # norm of a toy critic (per-channel scale -> epilogue -> random linear
@@ -329,20 +346,26 @@ def check_epilogue_kernels(torch, lpn, seed):
               'bwd_bf16': epilogue_bound_ms('k2', shape_bf16, 2)}
     by_shape = []
     for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).removeprefix('torch.')
         for shp, n_groups in sorted(epilogue_shapes(dtype)):
             xs, gs = randn(shp, dtype), randn(shp, dtype)
             item = xs.element_size()
+            inst = instances[f'{dt}/{shp[1] // n_groups}']
             by_shape.append({
-                'dtype': str(dtype).removeprefix('torch.'), 'x': list(shp),
-                'n_groups': n_groups,
+                'dtype': dt, 'x': list(shp), 'n_groups': n_groups,
                 'fwd_ms': device_ms(lambda: lpn._fwd(xs, n_groups, 0.2, 1e-8)),
                 'bwd_ms': device_ms(
                     lambda: lpn._bwd(xs, gs, n_groups, 0.2, 1e-8)),
+                'fwd_plain_ms': device_ms(
+                    lambda: lpn.lrelu_pixel_norm_plain(xs, n_groups)),
+                'bwd_plain_ms': device_ms(
+                    lambda: lpn.lrelu_pixel_norm_bwd_plain(xs, gs, n_groups)),
                 'fwd_bound_ms': epilogue_bound_ms('k1', shp, item),
-                'bwd_bound_ms': epilogue_bound_ms('k2', shp, item)})
+                'bwd_bound_ms': epilogue_bound_ms('k2', shp, item), **inst})
     return {'max_abs_err': err, 'checked': checked, 'timed_shape': list(shape),
             'timed_shape_bf16': list(shape_bf16), 'timed_n_groups_bf16': 4,
-            **times, 'bound_ms': bounds, 'by_shape': by_shape}
+            **times, 'bound_ms': bounds, 'instances': instances,
+            'by_shape': by_shape}
 
 
 # Tolerances of the packed conv pair against its plain version (cuDNN's
@@ -691,20 +714,11 @@ def check_dz_kernel(torch, pcl, seed):
         """y, r, ct_y, ct_r at y's ``shape``, each ``offset`` elements into
         its storage."""
         b, _, h, w = shape
-
-        def place(t):
-            if not offset:
-                return t
-            buf = torch.empty(t.numel() + offset, dtype=t.dtype, device='cuda')
-            view = buf[offset:].view(t.shape)
-            view.copy_(t)
-            return view
-
         y = torch.randn(shape, generator=gen, device='cuda').to(dtype)
         g = torch.randn(shape, generator=gen, device='cuda').to(dtype)
         r = 0.5 + torch.rand((b, 4, h, w), generator=gen, device='cuda')
         ct_r = torch.randn((b, 4, h, w), generator=gen, device='cuda')
-        return [place(t) for t in (y, r, g, ct_r)]
+        return [at_offset(torch, t, offset) for t in (y, r, g, ct_r)]
 
     err, checked, rows = {}, [], []
     for dtype in (torch.float32, torch.bfloat16):
@@ -957,6 +971,9 @@ def train(torch, seed, cfg, name):
     want_sites = {(k, dt_name, shape, case): float(n)
                   for (k, shape, case), n in steady_step_sites(name).items()}
     assert per_step == want_sites, (name, per_step, want_sites)
+    # over the whole run, K1/K2 launched only their template instances
+    runtime = {key: n for key, n in read_cases().items() if '/' in key[0]}
+    assert not runtime, (name, runtime)
 
     with torch.no_grad():
         z = torch.randn(8, cfg.latent_dim, generator=rng, device='cuda')
@@ -1269,15 +1286,27 @@ def main():
                   else c_err['conv'])
         k4_largest, = [e for e in dz['by_shape'] if e['dtype'] == dt
                        and e['y'] == cv['timed_x']]
+        # K1/K2 at the timed shape's group width (f32 16, bf16 64 / 4 = 16)
+        inst = epi['instances'][f'{dt}/16']
+
+        def epi_shapes(kind):
+            return [{'x': e['x'], 'n_groups': e['n_groups'],
+                     **{k: e[f'{kind}_{k}'] for k in (
+                         'ms', 'plain_ms', 'bound_ms', 'regs')},
+                     'slice': e['slice']}
+                    for e in epi['by_shape'] if e['dtype'] == dt]
+
         rows += [
             row('lrelu_pixel_norm_fwd', 'lrelu_pixel_norm',
                 'pallas_kernels.py:65', 'k1', dt, e_err['fwd' + sfx],
                 epi[f'fwd{sfx}_ms'], epi[f'fwd{sfx}_plain_ms'],
-                epi['bound_ms']['fwd' + sfx], 'bytes', None),
+                epi['bound_ms']['fwd' + sfx], 'bytes', None,
+                regs=inst['fwd_regs'], by_shape=epi_shapes('fwd')),
             row('lrelu_pixel_norm_bwd', 'lrelu_pixel_norm',
                 'pallas_kernels.py:78', 'k2', dt, e_err['bwd' + sfx],
                 epi[f'bwd{sfx}_ms'], epi[f'bwd{sfx}_plain_ms'],
-                epi['bound_ms']['bwd' + sfx], 'bytes', None),
+                epi['bound_ms']['bwd' + sfx], 'bytes', None,
+                regs=inst['bwd_regs'], by_shape=epi_shapes('bwd')),
             row('packed_conv_lrelu_pn_fwd', 'packed_conv_lrelu_pn',
                 'pallas_conv.py:90', 'k3', dt, k3_err, cv['conv_ms'],
                 cv['conv_plain_ms'], cv['bound_ms']['conv'],

@@ -39,7 +39,13 @@ class AugmentSpec:
     shear: bool = False
 
     def __post_init__(self):
-        if self.fast or self.shear:
+        if self.shear and not self.fast:
+            # as the JAX package: the exact order has no shear path, and a
+            # silent fall-through would run the gather warp while the
+            # caller believes it selected shear
+            raise ValueError('AugmentSpec.shear requires fast=True '
+                             '(the reference-exact order has no shear path)')
+        if self.fast:
             raise NotImplementedError(
                 'the fast/shear augmentation is not ported yet '
                 '(ROADMAP A6.2-3); use the exact path')

@@ -26,7 +26,15 @@ The JAX package's other shipping defaults (the 2x4 layout, the fast/shear
 augmentation) are later slices of the port (ROADMAP A6, A11).  No
 configuration is a default anywhere until the card has measured it
 (ROADMAP B5).
+
+The kernel launch sites of one steady 512^2 step of each execution, by
+shape (``steady_step_sites``, ``epilogue_shapes``), are what chip_smoke.py
+and the kernel variant scripts check and time.
 """
+
+import collections
+
+import torch
 
 from neuron_gan_tpu_torch.models import PGConfig
 from neuron_gan_tpu_torch.train_step import ChunkSpec
@@ -66,3 +74,65 @@ def flagship_chunk_spec(phase, fading=False, **overrides):
     )
     kw.update(overrides)
     return ChunkSpec(**kw)
+
+
+# every LReLU + PixelNorm epilogue shape of the unpacked flagship path at
+# batch 8: G blocks (C, R) and D blocks (C, R)
+G_SHAPES = [(64, 32), (32, 64), (32, 128), (16, 256), (16, 512)]
+D_SHAPES = [(16, 256), (32, 128), (32, 64), (64, 32), (128, 16)]
+# every packed conv2 of the packed flagship path at batch 8, (N, packed
+# side): G blocks 1-4, then D blocks 0-2; K = N.  The packed conv1
+# epilogues (K1 at 4 groups) take the same shapes.
+PACKED_SHAPES = [(128, 32), (128, 64), (64, 128), (64, 256),
+                 (64, 128), (128, 64), (128, 32)]
+# the unpacked epilogues of the packed and mixed paths (C, R): G block 0,
+# D blocks 3 and 4; the mixed path gives K1-K4 the packed path's shapes
+UNPACKED_OF_PACKED = [(64, 32), (64, 32), (128, 16)]
+
+
+def steady_step_sites(path):
+    """Every kernel launch of one steady 512^2 step of a path ('unpacked',
+    'packed' or 'mixed'), as {(kernel, shape, case): launches}: K1/K2 at
+    (8, C, R, R) with case = the grouping, K3 at y's shape with case None,
+    K4 at y's shape with case 'live' or 'absent' (r's cotangent).  G runs
+    3 forwards and 1 backward a step, D 4 and 5 (chip_smoke.py's
+    ``expected_launches``); an unpacked block has two K1 epilogues, a
+    packed one a K1 at 4 groups and a K3; a K4 runs in each backward of a
+    K3, with a live ct_r in D's GP outer pass alone."""
+    sites = collections.Counter()
+
+    def unpacked(c, r, fwd, bwd):
+        sites['k1', (8, c, r, r), 1] += 2 * fwd
+        sites['k2', (8, c, r, r), 1] += 2 * bwd
+
+    def packed(n, s, fwd, bwd, live):
+        y = (8, n, s, s)
+        sites['k1', y, 4] += fwd
+        sites['k2', y, 4] += bwd
+        sites['k3', y, None] += fwd
+        sites['k4', y, 'absent'] += bwd - live
+        if live:
+            sites['k4', y, 'live'] += live
+
+    if path == 'unpacked':
+        for c, r in G_SHAPES:
+            unpacked(c, r, 3, 1)
+        for c, r in D_SHAPES:
+            unpacked(c, r, 4, 5)
+    else:
+        unpacked(*UNPACKED_OF_PACKED[0], 3, 1)
+        for c, r in UNPACKED_OF_PACKED[1:]:
+            unpacked(c, r, 4, 5)
+        for n, s in PACKED_SHAPES[:4]:
+            packed(n, s, 3, 1, 0)
+        for n, s in PACKED_SHAPES[4:]:
+            packed(n, s, 4, 5, 1)
+    return dict(sites)
+
+
+def epilogue_shapes(dtype):
+    """(x shape, grouping) of every K1/K2 launch of the paths that run
+    them in ``dtype`` (float32: unpacked and packed; bfloat16: mixed)."""
+    paths = ('unpacked', 'packed') if dtype == torch.float32 else ('mixed',)
+    return {(shape, case) for p in paths
+            for (k, shape, case) in steady_step_sites(p) if k == 'k1'}

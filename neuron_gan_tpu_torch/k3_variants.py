@@ -34,12 +34,13 @@ import sys
 
 import torch
 
+from neuron_gan_tpu_torch.flagship import PACKED_SHAPES
 from neuron_gan_tpu_torch.ops import packed as pk
 from neuron_gan_tpu_torch.ops import packed_conv_lrelu_pn as pcl
 from neuron_gan_tpu_torch.runtime import kernels, precision_scope
 
-SHAPES = [(128, 32), (128, 64), (64, 128), (64, 256)]   # (N = K, packed side)
-TOL = dict(rtol=1e-4, atol=1e-5)                         # chip_smoke.PACKED_TOL
+SHAPES = PACKED_SHAPES[:4]          # (N = K, packed side), each distinct one
+TOL = dict(rtol=1e-4, atol=1e-5)    # chip_smoke.PACKED_TOL
 
 _TF32_INT = '''__device__ __forceinline__ float tf32(float v) {
   return __uint_as_float((__float_as_uint(v) + 0x1000u) & 0xffffe000u);
@@ -79,14 +80,17 @@ def _substitute(src, edits):
     return src
 
 
-def build_variants(variants, out_name='k3_variants'):
+SOURCE = 'packed_conv_lrelu_pn'     # the csrc/ source the variants edit
+
+
+def build_variants(variants, out_name='k3_variants', source=SOURCE):
     """({name: ctypes library}, {name: ptxas register and spill lines}) of
-    csrc/packed_conv_lrelu_pn.cu with each variant's edits, built under
+    csrc/<source>.cu with each variant's edits, built under
     build/<out_name>/, all nvcc processes at once.  The caller sets the
     argument types of the entry points it calls."""
     out_dir = kernels.BUILD_DIR.parent / out_name
     out_dir.mkdir(parents=True, exist_ok=True)
-    src = (kernels.SOURCE_DIR / 'packed_conv_lrelu_pn.cu').read_text()
+    src = (kernels.SOURCE_DIR / f'{source}.cu').read_text()
     procs = {}
     for name, edits in variants.items():
         cu = out_dir / f'{name}.cu'

@@ -34,7 +34,7 @@ import sys
 import numpy as np
 import torch
 
-from neuron_gan_tpu_torch.k3_variants import SHAPES, build_variants
+from neuron_gan_tpu_torch.k3_variants import SHAPES, SOURCE, build_variants
 from neuron_gan_tpu_torch.ops import packed_conv_lrelu_pn as pcl
 from neuron_gan_tpu_torch.runtime.timing import device_ms
 
@@ -75,7 +75,7 @@ def main():
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    libs, ptxas = build_variants(VARIANTS, 'k4_variants')
+    libs, ptxas = build_variants(VARIANTS, 'k4_variants', SOURCE)
     libs = {'committed': pcl._lib(),
             **{name: _dz_entry(lib) for name, lib in libs.items()}}
     print(json.dumps({'ptxas': ptxas}), flush=True)

@@ -4,7 +4,8 @@
 phase and alpha bound.  Parity map to the reference (loss_functions.py):
 
 * ``d_w_loss``: ``-<D(x)> + <D(G(z))>`` with the fakes detached, plus the
-  drift ``eps * <D(x)^2>`` on the real scores (:7-47);
+  drift ``eps * <D(x)^2>`` on the real scores (:7-47); it takes the fake
+  batch G(z), which the batch step also hands the penalty;
 * ``g_w_loss``: ``-<D(G(z))>`` (:51-74);
 * ``d_grad_pen_loss``: WGAN-GP on per-sample interpolates,
   ``lambda * <(||dD/dx_hat||_2 - 1)^2>`` with the norm over (C, H, W)
@@ -22,13 +23,12 @@ def _f32(t):
     return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
-def d_w_loss(d_apply, g_apply, real_images, z, drift_epsilon=0.0):
-    """Critic Wasserstein loss. Returns (loss, (score_real, score_fake))."""
+def d_w_loss(d_apply, real_images, fake_images, drift_epsilon=0.0):
+    """Critic Wasserstein loss on the generator's batch ``fake_images``
+    (G(z), detached here). Returns (loss, (score_real, score_fake))."""
     real_scores = _f32(d_apply(real_images))
     score_real = real_scores.mean()
-    with torch.no_grad():
-        fake_images = g_apply(z)
-    score_fake = _f32(d_apply(fake_images)).mean()
+    score_fake = _f32(d_apply(fake_images.detach())).mean()
     loss = -score_real + score_fake
     if drift_epsilon > 0:
         loss = loss + drift_epsilon * torch.mean(real_scores * real_scores)

@@ -1,6 +1,8 @@
 """Device time of a function's kernels on the GPU, for the design and smoke
 scripts (chip_smoke.py, k4_variants.py)."""
 
+import time
+
 import torch
 
 _flush = {}
@@ -43,13 +45,16 @@ def device_ms(fn, iters=10, warmup=2):
     reads its inputs from device memory.  Launch gaps and host time do not
     count: at small shapes an event-timed loop of eager calls reads the
     host's launch rate, not the kernel.  A window in which the profiler
-    saw no flush or no kernel of ``fn`` is read again (twice at most),
-    then raises."""
+    missed a flush or saw no kernel of ``fn`` is read again, after a pause
+    that grows with each miss (CUPTI on an H100 has dropped every event
+    for some seconds), seven times at most, then raises."""
     flush = _l2_flush()
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for attempt in range(8):
+        if attempt:
+            time.sleep(0.5 * attempt)
         seen = _kernel_us(fn, iters, flush)
         flushes = sum(n for k, (_, n) in seen.items() if 'bitwise_not' in k)
         us = sum(t for k, (t, _) in seen.items() if 'bitwise_not' not in k)

@@ -172,11 +172,27 @@ def epoch_scalars(spec: ChunkSpec, epoch):
 # Batch step
 # --------------------------------------------------------------------------
 
+def resolve_shear(shear_warp, out_size):
+    """Resolve the warp backend for one phase (the JAX package's rule): a
+    bool forces it; 'auto' picks the shear warp at every phase resolution
+    but 32^2, where the JAX package measured the gather faster."""
+    if isinstance(shear_warp, bool):
+        return shear_warp
+    if shear_warp == 'auto':
+        return out_size != 32
+    raise ValueError(f'shear_warp must be True, False or "auto"; '
+                     f'got {shear_warp!r}')
+
+
 def _augment_spec(cfg: PGConfig, spec: ChunkSpec):
-    return AugmentSpec(crop_size=spec.crop_size,
-                       out_size=cfg.resolution(spec.phase),
+    """The phase's AugmentSpec; the shear warp only on the fast path, as
+    the JAX package builds it."""
+    out_size = cfg.resolution(spec.phase)
+    return AugmentSpec(crop_size=spec.crop_size, out_size=out_size,
                        translation=spec.translation, augment=spec.augment,
-                       fast=spec.fast_augment, shear=bool(spec.shear_warp))
+                       fast=spec.fast_augment,
+                       shear=(resolve_shear(spec.shear_warp, out_size)
+                              and spec.fast_augment))
 
 
 def draw_batch(rng: torch.Generator, cfg: PGConfig, spec: ChunkSpec,
@@ -197,13 +213,18 @@ def draw_batch(rng: torch.Generator, cfg: PGConfig, spec: ChunkSpec,
             'zg': sample_latent_vec(rng, size)}
 
 
-def _to(draws, device):
+def _to(draws, device, moved=None):
+    """``draws`` on ``device``; a tensor that appears twice (z2 is z1 under
+    gp_reuse_fakes) stays one tensor."""
+    moved = {} if moved is None else moved
     if isinstance(draws, torch.Tensor):
-        return draws.to(device)
+        if id(draws) not in moved:
+            moved[id(draws)] = draws.to(device)
+        return moved[id(draws)]
     if isinstance(draws, dict):
-        return {k: _to(v, device) for k, v in draws.items()}
+        return {k: _to(v, device, moved) for k, v in draws.items()}
     if isinstance(draws, (list, tuple)):
-        return type(draws)(_to(v, device) for v in draws)
+        return type(draws)(_to(v, device, moved) for v in draws)
     return draws
 
 
@@ -255,12 +276,17 @@ def make_batch_step(cfg: PGConfig, spec: ChunkSpec):
         zero = torch.zeros((), device=images.device)
 
         def d_total_loss(z1, z2, eps):
-            loss_w, (sr, sf) = d_w_loss(d_apply, g_apply, images, z1,
+            with torch.no_grad():
+                fake = g_apply(z1)
+            loss_w, (sr, sf) = d_w_loss(d_apply, images, fake,
                                         spec.drift_epsilon)
             gp = zero
             if spec.gp_lambda > 0:
-                with torch.no_grad():
-                    fake = g_apply(z2)
+                # z2 is z1 under gp_reuse_fakes: the critic loss's fake
+                # batch is the penalty's too (the JAX package's CSE)
+                if z2 is not z1:
+                    with torch.no_grad():
+                        fake = g_apply(z2)
                 gp = d_grad_pen_loss(d_apply, images, fake, eps,
                                      spec.gp_lambda)
             return loss_w + gp, (sr, sf, gp)

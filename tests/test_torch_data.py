@@ -107,10 +107,18 @@ def test_draw_augment_ranges_and_determinism():
     assert draw_augment(torch.Generator(), 4, 48, AugmentSpec(32, 16, augment=False)) is None
 
 
-@pytest.mark.parametrize('kw', [{'fast': True}, {'shear': True}])
+@pytest.mark.parametrize('kw', [{'fast': True}, {'fast': True, 'shear': True}])
 def test_unported_augment_paths_raise(kw):
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         AugmentSpec(crop_size=16, out_size=16, **kw)
+
+
+def test_shear_without_fast_raises_as_jax():
+    # the exact order has no shear path: both packages refuse the pair
+    with pytest.raises(ValueError, match='requires fast'):
+        JAugmentSpec(crop_size=16, out_size=16, shear=True)
+    with pytest.raises(ValueError, match='requires fast'):
+        AugmentSpec(crop_size=16, out_size=16, shear=True)
 
 
 def test_sample_latent_vec_semantics():

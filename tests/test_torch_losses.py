@@ -84,9 +84,9 @@ def test_d_w_loss_and_grads(setup, phase, alpha):
         lambda dp: jl.d_w_loss(ja, jg_apply, dp, g, jnp.asarray(x),
                                jnp.asarray(z), 0.001), has_aux=True))(d)
     tg, td = port(setup)
-    loss, (sr, sf) = tl.d_w_loss(lambda x_: td(x_, phase, alpha),
-                                 lambda z_: tg(z_, phase, alpha), t(x), t(z),
-                                 0.001)
+    # the fake batch is handed over with its graph: d_w_loss detaches it
+    loss, (sr, sf) = tl.d_w_loss(lambda x_: td(x_, phase, alpha), t(x),
+                                 tg(t(z), phase, alpha), 0.001)
     loss.backward()
     for a, b in ((loss, jloss), (sr, jsr), (sf, jsf)):
         assert a.item() == pytest.approx(float(b), rel=1e-4, abs=1e-5)

@@ -514,8 +514,8 @@ def test_mixed_losses_reduce_in_float32_and_interpolate_images_in_float32():
     fake = g(torch.randn(2, 8), 1).detach()
     assert fake.dtype == torch.float32
     gp = losses.d_grad_pen_loss(d_apply, real, fake, torch.rand(2), 10.0)
-    loss, (sr, sf) = losses.d_w_loss(d_apply, lambda z: g(z, 1), real,
-                                     torch.randn(2, 8), 0.001)
+    loss, (sr, sf) = losses.d_w_loss(d_apply, real, g(torch.randn(2, 8), 1),
+                                     0.001)
     assert seen == [torch.float32] * 3
     assert gp.dtype == loss.dtype == sr.dtype == sf.dtype == torch.float32
     assert torch.isfinite(gp) and torch.isfinite(loss)

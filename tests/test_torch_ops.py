@@ -15,7 +15,8 @@ import jax.numpy as jnp
 import torch
 
 from neuron_gan_tpu import ops as jops
-from neuron_gan_tpu.ops.pallas_kernels import grouped_lrelu_pixel_norm_pallas
+from neuron_gan_tpu.ops.pallas_kernels import (
+    _bwd_call, grouped_lrelu_pixel_norm_pallas)
 
 from neuron_gan_tpu_torch import ops as tops
 import neuron_gan_tpu_torch.ops.lrelu_pixel_norm as lpn
@@ -296,6 +297,87 @@ def test_epilogue_plain_versions_match_composed(n_groups):
     want, = torch.autograd.grad(composed(xr), xr, g)
     torch.testing.assert_close(lpn.lrelu_pixel_norm_bwd_plain(x, g, n_groups),
                                want, rtol=1e-4, atol=1e-5)
+
+
+# every template width of the kernels, and a width that takes the
+# runtime-width instance
+SLICED_WIDTHS = lpn.TEMPLATE_WIDTHS + (24,)
+
+
+def _sliced_case(c_g, dtype):
+    """x, g (2, 3, 5, 2 * c_g) NHWC in 2 groups, as JAX arrays of ``dtype``,
+    and the interpreted Pallas forward and backward on them."""
+    x = jnp.asarray(rand((2, 3, 5, 2 * c_g), 40 + c_g)).astype(dtype)
+    g = jnp.asarray(rand((2, 3, 5, 2 * c_g), 41 + c_g)).astype(dtype)
+    out = grouped_lrelu_pixel_norm_pallas(x, 2, 0.2, 1e-8, True)
+    dx = _bwd_call(x.reshape(-1, 2 * c_g), g.reshape(-1, 2 * c_g), 2, 0.2,
+                   1e-8, True).reshape(x.shape)
+    return x, g, out, dx
+
+
+def _port_sliced(x, g):
+    """The sliced forward and backward on NHWC JAX arrays, as NHWC
+    float32 numpy arrays (and the port's output dtype)."""
+    tx = nchw(np.asarray(x.astype(jnp.float32)))
+    tg = nchw(np.asarray(g.astype(jnp.float32)))
+    if x.dtype == jnp.bfloat16:
+        tx, tg = tx.bfloat16(), tg.bfloat16()
+    out = lpn.lrelu_pixel_norm_sliced(tx, 2)
+    dx = lpn.lrelu_pixel_norm_bwd_sliced(tx, tg, 2)
+    assert out.dtype == dx.dtype == tx.dtype
+    return nhwc(out.float()), nhwc(dx.float())
+
+
+@pytest.mark.parametrize('c_g', SLICED_WIDTHS)
+def test_epilogue_sliced_matches_pallas(c_g):
+    # the kernels' order of summation (slice sums, then the lanes'
+    # butterfly; the runtime-width instance in channel order) against the
+    # interpreted Pallas kernels, float32, at this file's forward and
+    # gradient tolerances (at C_g = 1, dx = g * r * (1 - y^2 r^2) cancels)
+    x, g, out, dx = _sliced_case(c_g, jnp.float32)
+    got_out, got_dx = _port_sliced(x, g)
+    np.testing.assert_allclose(got_out, np.asarray(out), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got_dx, np.asarray(dx), rtol=1e-4, atol=1e-5)
+
+
+def _rel_l2(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.sqrt(np.sum((a - b) ** 2) / np.sum(b ** 2))
+
+
+@pytest.mark.parametrize('c_g', SLICED_WIDTHS)
+def test_epilogue_sliced_bf16_tracks_pallas(c_g):
+    # bfloat16: no further from the interpreted Pallas kernels in bfloat16
+    # than they lie from themselves in float32 on the same inputs
+    x, g, out, dx = _sliced_case(c_g, jnp.bfloat16)
+    x32, g32 = x.astype(jnp.float32), g.astype(jnp.float32)
+    out32 = grouped_lrelu_pixel_norm_pallas(x32, 2, 0.2, 1e-8, True)
+    dx32 = _bwd_call(x32.reshape(-1, 2 * c_g), g32.reshape(-1, 2 * c_g), 2,
+                     0.2, 1e-8, True).reshape(x.shape)
+    got_out, got_dx = _port_sliced(x, g)
+    for got, want, ref in ((got_out, out, out32), (got_dx, dx, dx32)):
+        want = np.asarray(want.astype(jnp.float32))
+        dist, own = _rel_l2(got, want), _rel_l2(want, np.asarray(ref))
+        assert 0 < own and dist <= own, (dist, own)
+
+
+def test_epilogue_kernel_instance_rule():
+    # a template instance for each power of two up to 128, a thread taking
+    # S channels (float32 min(C_g, 4); bfloat16 min(C_g, 8), 4 at C_g >=
+    # 64) and the L = C_g / S lanes of a vector inside one warp; every
+    # other width the runtime-width instance, one thread walking the group
+    for dtype, want in ((torch.float32, [1, 2, 4, 4, 4, 4, 4, 4]),
+                        (torch.bfloat16, [1, 2, 4, 8, 8, 8, 4, 4])):
+        for c_g, s_want in zip(lpn.TEMPLATE_WIDTHS, want):
+            width, s = lpn.kernel_instance(c_g, dtype)
+            assert (width, s) == (c_g, s_want)
+            assert c_g % s == 0 and 32 % (c_g // s) == 0
+        for c_g in (3, 24, 96, 256):
+            assert lpn.kernel_instance(c_g, dtype) == (None, c_g)
+    # the flagship paths' widths all have template instances
+    assert {16, 32, 64, 128} <= set(lpn.TEMPLATE_WIDTHS)
+    with pytest.raises(TypeError):
+        lpn.kernel_instance(16, torch.float64)
 
 
 def test_epilogue_two_dimensional_rows():

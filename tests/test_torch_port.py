@@ -188,13 +188,14 @@ def test_kernel_sources_and_library_names():
     assert str(kernels.BUILD_DIR.relative_to(ROOT)) == os.path.join('build', 'kernels')
 
 
-@pytest.mark.parametrize('script', ['k3_variants', 'k4_variants'])
+@pytest.mark.parametrize('script', ['k3_variants', 'k4_variants',
+                                    'k12_variants'])
 def test_kernel_variants_each_edit_the_committed_source(script):
     # every design variant still applies to the source as it stands: each
     # of its edits matches exactly once and changes the text
     from neuron_gan_tpu_torch import k3_variants
     mod = importlib.import_module(f'neuron_gan_tpu_torch.{script}')
-    src = (kernels.SOURCE_DIR / 'packed_conv_lrelu_pn.cu').read_text()
+    src = (kernels.SOURCE_DIR / f'{mod.SOURCE}.cu').read_text()
     for name, edits in mod.VARIANTS.items():
         for old, new in edits:
             assert src.count(old) == 1 and old != new, (name, old)

@@ -254,6 +254,83 @@ def test_batch_step_variants_match_jax(params, variant):
     np.testing.assert_allclose(stats, jstats, rtol=1e-3, atol=5e-3)
 
 
+@pytest.mark.parametrize('shear_warp', [False, True, 'auto'])
+def test_resolve_shear_matches_jax(shear_warp):
+    for out_size in (16, 32, 64):
+        assert tts.resolve_shear(shear_warp, out_size) == \
+            jts.resolve_shear(shear_warp, out_size)
+    for resolve in (tts.resolve_shear, jts.resolve_shear):
+        with pytest.raises(ValueError, match='shear_warp must be'):
+            resolve('always', 64)
+
+
+def _one_step(params, spec, draws, raw):
+    """(stats, D gradients, G gradients) of one port batch step."""
+    state = port_state(params, spec)
+    stats = tts.make_batch_step(TCFG, tts.ChunkSpec(**spec))(
+        state, raw, draws, 0.5, LR, 0.0)
+    return stats, [p.grad.clone() for p in state.d.parameters()], \
+        [p.grad.clone() for p in state.g.parameters()]
+
+
+def _assert_same_step(a, b):
+    torch.testing.assert_close(a[0], b[0], rtol=0, atol=0)
+    for xs, ys in zip(a[1:], b[1:]):
+        for x, y in zip(xs, ys):
+            torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize('shear_warp', ['auto', True])
+def test_shear_without_fast_augment_runs_the_exact_path(params, shear_warp):
+    # as the JAX package: the shear switch acts only on the fast path, so
+    # with fast_augment off any shear_warp gives the exact augmentation
+    spec = dict(SPEC, fast_augment=False, shear_warp=shear_warp)
+    exact = dict(spec, shear_warp=False)
+    aug = tts._augment_spec(TCFG, tts.ChunkSpec(**spec))
+    assert aug == tts._augment_spec(TCFG, tts.ChunkSpec(**exact))
+    assert not aug.shear and not aug.fast
+    raw = torch.from_numpy(np.random.default_rng(2).random(
+        (2, FRAME, FRAME, 1)).astype(np.float32))
+    draws = tts.draw_batch(torch.Generator().manual_seed(1), TCFG,
+                           tts.ChunkSpec(**spec), 2, FRAME)
+    _assert_same_step(_one_step(params, spec, draws, raw),
+                      _one_step(params, exact, draws, raw))
+
+
+def test_gp_reuse_fakes_runs_the_generator_once_less(params, monkeypatch):
+    # gp_reuse_fakes draws z2 = z1, and the penalty then takes the critic
+    # loss's fake batch: a critic step runs G once where it ran twice, and
+    # the step equals the knob off with an equal z2 injected.  Where the
+    # injected z2 differs from z1 the penalty takes G(z2), as in JAX
+    spec = dict(SPEC, n_critic=2, gp_reuse_fakes=True)
+    raw = torch.from_numpy(np.random.default_rng(3).random(
+        (2, FRAME, FRAME, 1)).astype(np.float32))
+    draws = tts.draw_batch(torch.Generator().manual_seed(2), TCFG,
+                           tts.ChunkSpec(**spec), 2, FRAME)
+    assert all(z1 is z2 for z1, z2, _ in draws['critic'])
+    copied = dict(draws, critic=[(z1, z1.clone(), eps)
+                                 for z1, _, eps in draws['critic']])
+    apart = tts.draw_batch(torch.Generator().manual_seed(2), TCFG,
+                           tts.ChunkSpec(**dict(spec, gp_reuse_fakes=False)),
+                           2, FRAME)
+    calls = []
+    forward = GeneratorPG.forward
+    monkeypatch.setattr(GeneratorPG, 'forward', lambda self, *a, **kw: (
+        calls.append(1), forward(self, *a, **kw))[1])
+    runs, g_forwards = [], []
+    for reuse, ds in ((True, draws), (False, copied), (True, apart),
+                      (False, apart)):
+        n0 = len(calls)
+        runs.append(_one_step(params, dict(spec, gp_reuse_fakes=reuse),
+                              ds, raw))
+        g_forwards.append(len(calls) - n0)
+    # G(z1) and G(z2) per critic step unless z2 is z1; the generator step
+    # runs G once more
+    assert g_forwards == [2 + 1, 2 * 2 + 1, 2 * 2 + 1, 2 * 2 + 1]
+    _assert_same_step(*runs[:2])
+    _assert_same_step(*runs[2:])
+
+
 def test_step_restores_tf32_flags():
     before = (torch.backends.cudnn.allow_tf32,
               torch.backends.cuda.matmul.allow_tf32)
