@@ -4,12 +4,15 @@ check it.
 
     python3 chip_smoke.py [--seed N]
 
-Three paths of the port are driven, all at the flagship geometry (16^2 ..
-512^2): the unpacked layout (``flagship_config``) and the 2x2 packed layout
-with every kernel on (``flagship_packed_config``), both float32 with TF32
-off, and the JAX package's shipping numerics on the packed layout
-(``flagship_mixed_config``: 'mixed' at precision=None, fused level
-boundaries, every kernel in bfloat16).
+Four paths of the port are driven, all at the flagship geometry (16^2 ..
+512^2; ``flagship.PATHS``): the unpacked layout (``flagship_config``) and
+the 2x2 packed layout with every kernel on (``flagship_packed_config``),
+both float32 with TF32 off; the JAX package's shipping numerics on the 2x2
+layout (``flagship_mixed_config``: 'mixed' at precision=None, fused level
+boundaries, every kernel in bfloat16); and the JAX package's shipping step
+(``flagship_shipping_config``: the mixed path with its 16-channel levels in
+the 2x4 layout, their epilogues in K1/K2 at 8 groups, and the fast
+augmentation with the shear warp).
 
 Phases, each printing one JSON line:
 
@@ -45,17 +48,24 @@ Phases, each printing one JSON line:
               version at the largest; of K3 (and its plain version and
               F.conv2d) and of K4 (and its plain version) at every
               distinct packed shape, each beside its bound;
-5. boundaries each fused level boundary of the mixed path against its
-              decomposed chain at that path's shapes (float32, TF32 off),
-              and both forms' bfloat16 times;
+5. boundaries each fused level boundary of the mixed and shipping paths
+              (the 2x4 ones too) against its decomposed chain at those
+              paths' shapes (float32, TF32 off), and both forms' bfloat16
+              times;
 6. parity     for each path, one 512^2 batch step with the kernels, with the
               plain ops and with a reference (float32 paths: the plain ops
               in float64, and for the packed path also the plain unpacked
               step, TF32 off; the mixed path: the float32 plain packed
-              step), same parameters and draws: each network's gradient
-              must lie within the path's relative-L2 bound of the plain
-              path and of the reference, and two planted faults must fail
-              that bound (see ``parity``).
+              step; the shipping path: the same at float32 'highest' with
+              its boundaries fused), same parameters and draws: each
+              network's gradient must lie within the path's relative-L2
+              bound of the plain path and of the reference, and two
+              planted faults must fail that bound (see ``parity``);
+7. augment    the shipping augmentation (fast, shear 'auto') on the card
+              against the same function on the CPU over the flagship
+              stack at out 512, 256 and 32: source indices equal and
+              values within 1e-5 except at rounding ties, which are
+              counted (``check_augment``); its device time.
 
 Then the kernel table (one JSON line: a float32 and a bfloat16 row for each
 kernel, each with its launches per steady 512^2 step, as counted, and the
@@ -77,8 +87,8 @@ from unittest import mock
 import numpy as np
 
 from neuron_gan_tpu_torch.flagship import (
-    D_SHAPES, G_SHAPES, PACKED_SHAPES, UNPACKED_OF_PACKED, epilogue_shapes,
-    steady_step_sites)
+    D_SHAPES, G_SHAPES, PACKED8_SHAPES, PACKED_SHAPES, PATHS,
+    UNPACKED_OF_PACKED, epilogue_shapes, steady_step_sites)
 from neuron_gan_tpu_torch.runtime.timing import device_ms
 
 
@@ -234,17 +244,20 @@ def check_epilogue_kernels(torch, lpn, seed):
 
     f32_f = dict(rtol=1e-5, atol=1e-6)
     f32_b = dict(rtol=1e-4, atol=1e-5)
-    for c, r in G_SHAPES + D_SHAPES:
-        check((8, c, r, r), 1, torch.float32, f32_f, f32_b)
-    for n, s in sorted(set(PACKED_SHAPES)):
-        check((8, n, s, s), 4, torch.float32, f32_f, f32_b)
+    for shape in G_SHAPES + D_SHAPES:
+        check(shape, 1, torch.float32, f32_f, f32_b)
+    for shape in sorted(set(PACKED_SHAPES)):
+        check(shape, 4, torch.float32, f32_f, f32_b)
     check((8, 64, 16, 16), 8, torch.float32, f32_f, f32_b)
     check((3, 16, 5, 7), 1, torch.float32, f32_f, f32_b)     # ragged tail
-    # every shape of the mixed path in bfloat16
-    for c, r in sorted(set(UNPACKED_OF_PACKED)):
-        check((8, c, r, r), 1, torch.bfloat16, None, None)
-    for n, s in sorted(set(PACKED_SHAPES)):
-        check((8, n, s, s), 4, torch.bfloat16, None, None)
+    # every shape of the mixed and shipping paths in bfloat16, the 2x4
+    # blocks' at 8 groups
+    for shape in sorted(set(UNPACKED_OF_PACKED)):
+        check(shape, 1, torch.bfloat16, None, None)
+    for shape in sorted(set(PACKED_SHAPES)):
+        check(shape, 4, torch.bfloat16, None, None)
+    for shape in sorted(set(PACKED8_SHAPES)):
+        check(shape, 8, torch.bfloat16, None, None)
     check((3, 16, 5, 7), 1, torch.bfloat16, None, None)
     check((8, 64, 16, 16), 8, torch.bfloat16, None, None)
     # the instances no path shape reaches, in both dtypes: group widths 1,
@@ -478,8 +491,8 @@ def check_packed_kernels(torch, pcl, seed):
         checked.append({'gp_second_order': [b, k, h, w], 'n': n})
 
     with precision_scope('highest'):
-        for n, side in PACKED_SHAPES:
-            check(8, n, n, side, side)
+        for _, n, h, w in PACKED_SHAPES:
+            check(8, n, n, h, w)
         check(3, 20, 32, 5, 37)                  # ragged: K, H and W tails
         check(2, 64, 16, 9, 33)                  # the narrowest width
         for shape in ((2, 64, 64, 8, 8), (8, 128, 128, 32, 32),
@@ -562,15 +575,15 @@ def conv_by_shape(torch, pcl, gen, dtype):
     gather too), the plain version and F.conv2d (with w_packed in x's
     type); its bound beside."""
     rows = []
-    for n, side in sorted(set(PACKED_SHAPES)):
-        xs, wps = packed_case(torch, gen, 8, n, n, side, side)
+    for _, n, h, w in sorted(set(PACKED_SHAPES)):
+        xs, wps = packed_case(torch, gen, 8, n, n, h, w)
         xs = xs.to(dtype)
         wds = wps.to(dtype)
         launch, _, _ = pcl.conv_fwd_launcher(xs, wps)
         n_bytes, n_ops, bound_ms, bound_by = conv_bound(
             xs.shape, n, int(torch.count_nonzero(wps)), xs.element_size())
         rows.append({
-            'x': [8, n, side, side], 'n': n,
+            'x': [8, n, h, w], 'n': n,
             'smem_bytes': pcl.conv_fwd_smem(n, dtype),
             'kernels_ms': device_ms(launch),
             'wrapper_ms': device_ms(lambda: pcl._conv_fwd(xs, wps, 0.2, 1e-8)),
@@ -651,8 +664,8 @@ def check_packed_kernels_bf16(torch, pcl, seed):
         checked.append({'gp_second_order': [b, k, h, w], 'n': n,
                         'dtype': 'bfloat16'})
 
-    for n, side in PACKED_SHAPES:
-        check(8, n, n, side, side)
+    for _, n, h, w in PACKED_SHAPES:
+        check(8, n, n, h, w)
     check(3, 20, 32, 5, 38)                  # ragged: K, H and W tails
     check(2, 64, 16, 9, 34)                  # the narrowest width
     for shape in ((2, 64, 64, 8, 8), (8, 128, 128, 32, 32),
@@ -738,7 +751,7 @@ def check_dz_kernel(torch, pcl, seed):
             err[dt] = max(err[dt], e)
             checked.append({'y': list(y.shape), 'dtype': dt, 'case': what})
 
-        shapes = [(8, n, s, s) for n, s in sorted(set(PACKED_SHAPES))]
+        shapes = sorted(set(PACKED_SHAPES))
         for shape in shapes + DZ_TAILS[dt]:
             y, r, g, ct_r = case(shape, dtype)
             check(y, r, g, ct_r, 'live')
@@ -770,48 +783,72 @@ def check_dz_kernel(torch, pcl, seed):
 
 def boundary_cases(cfg):
     """(name, input shape, weight (Co, Ci)) of every fused level boundary of
-    a 512^2 step of ``cfg`` at batch 8: G blocks whose convs run packed,
-    D blocks entered packed."""
-    from neuron_gan_tpu_torch.models.pggan import _want_packed
+    a 512^2 step of ``cfg`` at batch 8: G blocks whose convs run packed
+    ('up2', or 'up2_p8' into the 2x4 layout), D blocks entered packed
+    ('pool2', 'pool2_unpacked'; from the 2x4 layout 'pool2_p8', or
+    'pool2_p8_exit' into the 2x2 layout)."""
+    from neuron_gan_tpu_torch.models.pggan import (
+        _want_packed, _want_packed8_d, _want_packed8_g)
     f_g, f_d, cases = cfg.n_gen_features, cfg.n_dis_features, []
     for i in range(1, cfg.n_layers_max - 1):
-        if _want_packed(cfg, cfg.resolution(i + 1)):
+        out = cfg.resolution(i + 1)
+        if _want_packed(cfg, out):
             r = cfg.resolution(i)
-            cases.append(('up2', (8, f_g[i], r, r), (f_g[i + 1], f_g[i])))
+            name = 'up2_p8' if _want_packed8_g(cfg, out, f_g[i + 1]) else 'up2'
+            cases.append((name, (8, f_g[i], r, r), (f_g[i + 1], f_g[i])))
+    in_p8 = _want_packed8_d(cfg, cfg.image_size_max, f_d[0])
     for i in range(cfg.n_layers_max - 1):
         entry = cfg.image_size_max // 2 ** i
-        if _want_packed(cfg, entry):
-            m = entry // 2
-            name = 'pool2' if _want_packed(cfg, entry // 2) else 'pool2_unpacked'
-            cases.append((name, (8, 4 * f_d[i], m, m), (f_d[i + 1], f_d[i])))
+        half, weight = entry // 2, (f_d[i + 1], f_d[i])
+        out_p8 = in_p8 and _want_packed8_d(cfg, half, f_d[i + 1])
+        if in_p8 and _want_packed(cfg, half):
+            name = 'pool2_p8' if out_p8 else 'pool2_p8_exit'
+            cases.append((name, (8, 8 * f_d[i], half, half // 2), weight))
+        elif _want_packed(cfg, entry):
+            name = 'pool2' if _want_packed(cfg, half) else 'pool2_unpacked'
+            cases.append((name, (8, 4 * f_d[i], half, half), weight))
+        in_p8 = out_p8
     return cases
 
 
-def check_boundaries(torch, seed, cfg):
-    """Each fused boundary (ops/packed.py) against its decomposed chain at
-    the path's shapes, float32 with TF32 off: forward elementwise (rtol
-    1e-4, atol 1e-5 of the output's scale), input and weight gradients by
-    relative L2 (at most 5e-5: sums reordered, the weight gradient's over
-    up to 2^19 products); and the bfloat16 times of both forms,
-    forward."""
+def check_boundaries(torch, seed, cfgs):
+    """Each fused boundary (ops/packed.py) of the paths of ``cfgs`` against
+    its decomposed chain at the paths' shapes, float32 with TF32 off:
+    forward elementwise (rtol 1e-4, atol 1e-5 of the output's scale),
+    input and weight gradients by relative L2 (at most 5e-5: sums
+    reordered, the weight gradient's over up to 2^19 products); and the
+    bfloat16 times of both forms, forward."""
     from neuron_gan_tpu_torch.ops import equalized_conv2d, upsample2_bilinear
     from neuron_gan_tpu_torch.ops import packed as pk
     from neuron_gan_tpu_torch.runtime import precision_scope
     gen = torch.Generator(device='cuda').manual_seed(seed + 13)
+
+    def pooled(x, w):    # the 2x4 input's decomposed D chain, 2x2 output
+        return pk.packed_equalized_conv3x3(
+            pk.space_to_depth(pk.packed_avg_pool2(pk.depth_to_space_w(x))), w)
+
     chains = {
         'up2': (lambda x, w: pk.up2_equalized_conv3x3(x, w),
                 lambda x, w: pk.packed_equalized_conv3x3(
                     pk.space_to_depth(upsample2_bilinear(x)), w)),
+        'up2_p8': (lambda x, w: pk.up2_equalized_conv3x3_p8(x, w),
+                   lambda x, w: pk.space_to_depth_w(pk.packed_equalized_conv3x3(
+                       pk.space_to_depth(upsample2_bilinear(x)), w))),
         'pool2': (lambda x, w: pk.pool2_equalized_conv3x3(x, w),
                   lambda x, w: pk.packed_equalized_conv3x3(
                       pk.space_to_depth(pk.packed_avg_pool2(x)), w)),
+        'pool2_p8': (lambda x, w: pk.pool2_equalized_conv3x3_p8(x, w),
+                     lambda x, w: pk.space_to_depth_w(pooled(x, w))),
+        'pool2_p8_exit': (lambda x, w: pk.pool2_equalized_conv3x3_p8(
+            x, w, out_packed8=False), pooled),
         'pool2_unpacked': (
             lambda x, w: pk.pool2_unpacked_equalized_conv3x3(x, w),
             lambda x, w: equalized_conv2d(pk.packed_avg_pool2(x), w,
                                           padding=1)),
     }
+    cases = list(dict.fromkeys(c for cfg in cfgs for c in boundary_cases(cfg)))
     out = []
-    for name, xs, (co, ci) in boundary_cases(cfg):
+    for name, xs, (co, ci) in cases:
         fused, chain = chains[name]
         x = torch.randn(xs, generator=gen, device='cuda')
         w = torch.randn((co, ci, 3, 3), generator=gen, device='cuda')
@@ -841,6 +878,64 @@ def check_boundaries(torch, seed, cfg):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the fast augmentation on the card against the CPU
+# ---------------------------------------------------------------------------
+
+AUGMENT_TIE = 1e-5     # the CPU tests' rule (tests/test_torch_augment_fast.py)
+
+
+def check_augment(torch, seed):
+    """The shipping augmentation (fast, shear 'auto') on the card against
+    the same function on the CPU, over the flagship stack (8, 768, 768, 1)
+    at out 512, 256 (shear warp) and 32 (gather warp), the same draws.
+
+    Every window pixel's source index equal, and its value within 1e-5,
+    except where one of the warp's coordinates before rounding (the shear
+    shifts, or the gather's source coordinates) lies within 1e-5 of a
+    half-integer on the CPU: there torch's libm and CUDA's tan/sin/cos may
+    round apart.  Those pixels are counted; fewer than 0.1% of them."""
+    from neuron_gan_tpu_torch.data import augment as aug
+    from neuron_gan_tpu_torch.runtime import precision_scope
+    from neuron_gan_tpu_torch.train_step import resolve_shear
+    raw = torch.from_numpy(np.random.default_rng(seed + 5).random(
+        (8, 768, 768, 1)).astype(np.float32))
+    raw_dev = raw.to('cuda')
+    rows = []
+    for out in (512, 256, 32):
+        spec = aug.AugmentSpec(crop_size=512, out_size=out, translation=0.05,
+                               fast=True, shear=resolve_shear('auto', out))
+        draws = aug.draw_augment(torch.Generator().manual_seed(seed + out), 8,
+                                 768, spec)
+        draws_dev = {k: v.to('cuda') for k, v in draws.items()}
+        want = aug.augment_batch(raw, draws, spec)
+        with precision_scope(None):       # as the shipping step runs it
+            got = aug.augment_batch(raw_dev, draws_dev, spec)
+            ms = cuda_ms(lambda: aug.augment_batch(raw_dev, draws_dev, spec),
+                         iters=10)
+        p = aug.warp_frame(spec, 768)
+        window = (int(round((p - out) / 2.0)), out)
+        source = aug.shear_source if spec.shear else aug.affine_source
+        geom = [draws[k] for k in ('angle', 'tx', 'ty', 'flip')]
+        iy, ix, coords = source(p, window, *geom)
+        iy_d, ix_d, _ = source(p, window, *[t.to('cuda') for t in geom])
+        tie = ((coords - coords.floor() - 0.5).abs() < AUGMENT_TIE).any(0)
+        moved = (iy_d.cpu() != iy) | (ix_d.cpu() != ix)
+        err = (got.cpu() - want).abs()[:, 0]
+        row = {'out': out, 'frame': p, 'warp': 'shear' if spec.shear
+               else 'gather', 'pixels': tie.numel(),
+               'tie_pixels': int(tie.sum()),
+               'moved_at_ties': int((moved & tie).sum()),
+               'moved_elsewhere': int((moved & ~tie).sum()),
+               'max_abs_err': err[~tie].max().item(), 'ms': ms}
+        rows.append(row)
+        assert got.shape == (8, 1, out, out) and torch.isfinite(got).all(), row
+        assert not row['moved_elsewhere'] and row['max_abs_err'] <= 1e-5, row
+        assert row['tie_pixels'] < 1e-3 * row['pixels'], row
+    return {'phase': 'augment', 'cases': rows,
+            'shear_fallbacks': sum(aug.shear_fallbacks.values())}
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the main paths
 # ---------------------------------------------------------------------------
 
@@ -850,33 +945,64 @@ def launch_key(dtype, n_groups=None):
     return dtype if n_groups is None else f'{dtype}/{n_groups}'
 
 
+def block_layouts(cfg, phase):
+    """The layout of each block a step of ``cfg`` at ``phase`` runs, G's
+    then D's: 'unpacked' (two K1 at 1 group), 'packed' (the 2x2 layout: a
+    K1 at 4 groups and a K3) or 'p8' (the 2x4 layout: two K1 at 8
+    groups), by the JAX package's routing rules (models/pggan.py's
+    predicates): a G block enters the 2x4 layout natively at a fused
+    up-conv, a D block stays in it where its input is 2x4, and a 2x2 block
+    of 64 packed channels runs its tail in it."""
+    from neuron_gan_tpu_torch.models.pggan import (
+        _want_packed, _want_packed8_d, _want_packed8_g)
+    f_g, f_d, n = cfg.n_gen_features, cfg.n_dis_features, cfg.n_layers_max
+
+    def layout(native, res, feat):
+        if not _want_packed(cfg, res):
+            return 'unpacked'
+        tail8 = (cfg.packed_lanes == 128 and 4 * feat == 64
+                 and (res // 2) % 2 == 0)
+        return 'p8' if native or tail8 else 'packed'
+
+    g = [layout(_want_packed8_g(cfg, cfg.resolution(i + 1), f_g[i + 1]),
+                cfg.resolution(i + 1), f_g[i + 1]) for i in range(phase)]
+    d, res = [], cfg.resolution(phase)
+    in_p8 = _want_packed8_d(cfg, res, f_d[n - 1 - phase])
+    for i in range(n - 1 - phase, n - 1):
+        res //= 2
+        in_p8 = in_p8 and _want_packed8_d(cfg, res, f_d[i + 1])
+        d.append(layout(in_p8, res, f_d[i + 1]))
+    return g, d
+
+
 def expected_launches(cfg, phases_per_step):
     """Kernel launches of batch steps of ``cfg`` at these phases, keyed by
-    ``launch_key``, as tests/test_torch_train_step.py counts them on the
-    CPU.
+    ``launch_key``, as tests/test_torch_train_step.py and
+    tests/test_torch_packed8.py count them on the CPU.
 
     Per step: G runs 3 forwards and 1 backward; D runs 4 forwards (real,
     fake, the GP's interpolate, the generator step) and 5 backwards (real,
     fake, the GP's inner pass, the GP's outer pass back through the
-    interpolate's forward, the generator step).  At phase p, G's blocks run
-    at resolution(1..p) and D's at resolution(0..p-1); an unpacked block
-    has two K1 epilogues, a packed one a K1 epilogue at 4 groups (conv1)
-    and a K3 (conv2).  Each K1 forward has its K2 in a backward, each K3
-    its K4.  Every launch takes the blocks' dtype (cfg.dtype): the fused
-    level boundaries change no count."""
-    from neuron_gan_tpu_torch.models.pggan import _want_packed
+    interpolate's forward, the generator step).  Each block launches by
+    its layout (``block_layouts``); each K1 forward has its K2 in a
+    backward, each K3 its K4.  Every launch takes the blocks' dtype
+    (cfg.dtype): the fused level boundaries change no count."""
     dt = str(cfg.dtype).removeprefix('torch.')
     k1, k2, k3, k4 = (collections.Counter() for _ in range(4))
+    groups = {'unpacked': 1, 'packed': 4, 'p8': 8}
     for p in phases_per_step:
-        g_pk = sum(_want_packed(cfg, cfg.resolution(i + 1)) for i in range(p))
-        d_pk = sum(_want_packed(cfg, cfg.resolution(i)) for i in range(p))
-        if cfg.use_kernels:
-            k1[launch_key(dt, 1)] += 3 * 2 * (p - g_pk) + 4 * 2 * (p - d_pk)
-            k2[launch_key(dt, 1)] += 1 * 2 * (p - g_pk) + 5 * 2 * (p - d_pk)
-            k1[launch_key(dt, 4)] += 3 * g_pk + 4 * d_pk
-            k2[launch_key(dt, 4)] += 1 * g_pk + 5 * d_pk
-            k3[dt] += 3 * g_pk + 4 * d_pk
-            k4[dt] += 1 * g_pk + 5 * d_pk
+        if not cfg.use_kernels:
+            continue
+        g, d = block_layouts(cfg, p)
+        for layouts, fwd, bwd in ((g, 3, 1), (d, 4, 5)):
+            for lay in layouts:
+                key = launch_key(dt, groups[lay])
+                n = 1 if lay == 'packed' else 2
+                k1[key] += n * fwd
+                k2[key] += n * bwd
+                if lay == 'packed':
+                    k3[dt] += fwd
+                    k4[dt] += bwd
     return {k: dict(+c) for k, c in
             (('k1', k1), ('k2', k2), ('k3', k3), ('k4', k4))}
 
@@ -907,7 +1033,7 @@ def read_cases():
 
 
 def train(torch, seed, cfg, name):
-    from neuron_gan_tpu_torch.flagship import flagship_chunk_spec
+    from neuron_gan_tpu_torch.data import augment
     from neuron_gan_tpu_torch.models import DiscriminatorPG, GeneratorPG
     from neuron_gan_tpu_torch.schedule import TrainSchedule
     from neuron_gan_tpu_torch.train_step import (
@@ -923,13 +1049,14 @@ def train(torch, seed, cfg, name):
     rng = torch.Generator(device='cuda').manual_seed(seed)
     sched = TrainSchedule(transit_sch=(2, 4, 6, 8, 10), alpha_step=0.5,
                           n_epochs=12, checkpointing_period=100, lr0=1e-4)
-    base = flagship_chunk_spec(0)
+    base = PATHS[name][1](0)
     steps_per_epoch = base.n_images // base.batch_size
     n_timed_epochs = 5
 
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     reset_counters()
+    augment.shear_fallbacks.clear()
     chunks, step_phases = [], []
     t_run = time.perf_counter()
     for start, end in sched.plan_chunks(1, sched.n_epochs + 1):
@@ -988,6 +1115,8 @@ def train(torch, seed, cfg, name):
         'steady_512_steps_per_s': steps_per_epoch * n_timed_epochs / dt,
         'steady_512_stats': stats.mean(axis=0).tolist(),
         'launches': launches,
+        # batches whose shear warp met an odd margin and took the gather
+        'shear_fallbacks': sum(augment.shear_fallbacks.values()),
         'launches_per_steady_step': [
             {'kernel': k, 'dtype': d, 'x': list(shape), 'case': c, 'n': n}
             for (k, d, shape, c), n in sorted(per_step.items(), key=str)],
@@ -1001,15 +1130,18 @@ def train(torch, seed, cfg, name):
 
 # how far each network's gradient, as one vector, may lie from the plain
 # path's and from the reference's (float32 paths: float64, and packed
-# also the plain unpacked path; mixed: the float32 plain packed path), by
-# relative L2 error: about 3x the largest reading of a run without a fault
-# at 512^2 on an H100 (PERF.md): unpacked D 5.83e-4, G 1.01e-3; packed D
-# 5.87e-4, G 1.23e-3; mixed (kernel~plain, bfloat16 rounding in both) D
-# 0.0248, G 0.171, where its faults read D 0.385 and 0.868 (they reach D
-# alone, through the GP)
+# also the plain unpacked path; mixed and shipping: the float32 plain
+# path), by relative L2 error: about 3x the largest reading of a run
+# without a fault at 512^2 on an H100 (PERF.md): unpacked D 5.83e-4, G
+# 1.01e-3; packed D 5.87e-4, G 1.23e-3; mixed (kernel~plain, bfloat16
+# rounding in both) D 0.0248, G 0.171, where its faults read D 0.385 and
+# 0.868 (they reach D alone, through the GP); shipping (kernel~plain) D
+# 0.0259, G 0.158 (kernel~float32 D 0.0456, G 0.197), where its faults
+# read D 0.180 (K1 at 4 groups) and 0.277 (D's exit at stride (2, 2))
 REL_L2_BOUND = {'unpacked': {'D': 2e-3, 'G': 3e-3},
                 'packed': {'D': 2e-3, 'G': 4e-3},
-                'mixed': {'D': 0.075, 'G': 0.5}}
+                'mixed': {'D': 0.075, 'G': 0.5},
+                'shipping': {'D': 0.075, 'G': 0.5}}
 
 
 def _plain(cfg):
@@ -1024,7 +1156,33 @@ def _faults(torch, cfg):
     bfloat16.  Packed path: the r cotangent dropped in the fused conv's
     backward (what the GP's outer pass sends back through the saved r);
     the dz kernel's second order zeroed (``Dz``'s backward returns
-    zeros)."""
+    zeros).  2x4 layout: the epilogue kernel at 4 groups where the layout
+    has 8; D's exit from the 2x4 layout at stride (2, 2) where it is
+    (2, 1), its columns repeated back to the 2x2 width."""
+    if cfg.packed_lanes == 128:
+        import torch.nn.functional as F
+        import neuron_gan_tpu_torch.models.pggan as pggan
+        from neuron_gan_tpu_torch.ops import packed as pk
+        epilogue, boundary = (pggan.fused_lrelu_pixel_norm,
+                              pk.pool2_equalized_conv3x3_p8)
+
+        def four_groups(x, n_groups, *a):
+            return epilogue(x, 4 if n_groups == 8 else n_groups, *a)
+
+        def exit_stride_2x2(x, w, b=None, *, neg_slope=0.2, out_packed8=True):
+            if out_packed8:
+                return boundary(x, w, b, neg_slope=neg_slope)
+            wf = pk.fuse_pool2_conv3x3_weight_w8_out4(
+                w, pk._eq_scale3x3(w, neg_slope))
+            y = F.conv2d(x, wf.to(x.dtype), None, stride=(2, 2), padding=1)
+            return y.repeat_interleave(2, dim=3)
+
+        return {
+            'k1_4_groups_in_p8': [mock.patch.object(
+                pggan, 'fused_lrelu_pixel_norm', four_groups)],
+            'd_exit_stride_2x2': [mock.patch.object(
+                pk, 'pool2_equalized_conv3x3_p8', exit_stride_2x2)],
+        }
     if cfg.packed_min_res is not None:
         import neuron_gan_tpu_torch.ops.packed_conv_lrelu_pn as pcl
         real = pcl.PackedConvLReluPN.backward
@@ -1069,8 +1227,9 @@ def parity(torch, seed, cfg_k, spec, raw, name='unpacked'):
     float32 path (TF32 off) the reference is the plain path in float64,
     and for a packed one also the plain unpacked path (packing is exact up
     to reordered sums); for the mixed path it is the float32 plain packed
-    path ('highest').  The learning rate is 0, so every run's generator
-    gradients are taken against the same critic.
+    path ('highest'), for the shipping path the same with its boundaries
+    fused, so its 2x4 region stays native.  The learning rate is 0, so
+    every run's generator gradients are taken against the same critic.
 
     Held: each network's gradient within ``REL_L2_BOUND[name]`` of the
     plain path and of each reference; for a float32 path the stats and G's
@@ -1106,8 +1265,11 @@ def parity(torch, seed, cfg_k, spec, raw, name='unpacked'):
 
     runs = {'kernel': one_step(cfg_k), 'plain': one_step(cfg_p)}
     if cfg_k.compute_dtype != 'float32':
-        runs['float32'] = one_step(dataclasses.replace(
-            cfg_p, compute_dtype='float32', precision='highest'))
+        ref = dict(compute_dtype='float32', precision='highest')
+        if cfg_k.packed_lanes == 128:
+            # the fused boundaries at 'highest': the 2x4 region native
+            ref.update(fuse_up2_conv=True, fuse_pool_conv=True)
+        runs['float32'] = one_step(dataclasses.replace(cfg_p, **ref))
         refs = ['plain', 'float32']
     else:
         runs['float64'] = one_step(cfg_p, torch.float64)
@@ -1177,9 +1339,6 @@ def main():
         print('chip_smoke: no CUDA device; the port runs on an NVIDIA GPU',
               file=sys.stderr)
         return 2
-    from neuron_gan_tpu_torch.flagship import (
-        flagship_chunk_spec, flagship_config, flagship_mixed_config,
-        flagship_packed_config)
     from neuron_gan_tpu_torch.runtime import kernels
     import neuron_gan_tpu_torch.ops.lrelu_pixel_norm as lpn
     import neuron_gan_tpu_torch.ops.packed_conv_lrelu_pn as pcl
@@ -1201,8 +1360,7 @@ def main():
 
     # the main paths first: their steps/s windows run in a process in which
     # the profiler (device_ms) has not run yet
-    paths = {'unpacked': flagship_config(), 'packed': flagship_packed_config(),
-             'mixed': flagship_mixed_config()}
+    paths = {name: make() for name, (make, _) in PATHS.items()}
     trained = {}
     for name, cfg in paths.items():
         trained[name] = train(torch, args.seed, cfg, name)
@@ -1218,12 +1376,14 @@ def main():
     dz = check_dz_kernel(torch, pcl, args.seed)
     emit({'phase': 'kernels', 'kernel': 'packed_dz', **dz})
 
-    emit(check_boundaries(torch, args.seed, paths['mixed']))
+    emit(check_boundaries(torch, args.seed,
+                          [paths['mixed'], paths['shipping']]))
     raw = torch.from_numpy(np.random.default_rng(args.seed + 1).random(
         (8, 768, 768, 1)).astype(np.float32)).to('cuda')
     for name, cfg in paths.items():
         emit(parity(torch, args.seed, cfg,
-                    flagship_chunk_spec(cfg.n_phases - 1), raw, name))
+                    PATHS[name][1](cfg.n_phases - 1), raw, name))
+    emit(check_augment(torch, args.seed))
 
     # each kernel's launches by dtype on each path; a row's launches are
     # those of the path that runs it in that dtype (float32: the packed
@@ -1239,8 +1399,11 @@ def main():
     for key in ('k1', 'k2', 'k3', 'k4'):
         assert by_path[key, 'float32']['packed'] > 0, (key, by_path)
         assert by_path[key, 'bfloat16']['mixed'] > 0, (key, by_path)
+        assert by_path[key, 'bfloat16']['shipping'] > 0, (key, by_path)
     for key in ('k1', 'k2'):
         assert by_path[key, 'float32']['unpacked'] > 0, (key, by_path)
+        # the 2x4 blocks' epilogues at 8 groups
+        assert trained['shipping']['launches'][key].get('bfloat16/8'), key
 
     # per steady 512^2 step of a path: a kernel's launches as the train
     # phase counted them, and the sum of their bounds
@@ -1270,6 +1433,8 @@ def main():
         steps = [per_step(path, key, dtype)]
         if key in ('k1', 'k2') and dtype == 'float32':
             steps.append(per_step('unpacked', key, dtype))
+        if dtype == 'bfloat16':
+            steps.append(per_step('shipping', key, dtype))
         return {'name': name, 'route': 'cuda', 'dtype': dtype,
                 'source': f'neuron_gan_tpu_torch/csrc/{src}.cu',
                 'replaces': f'neuron_gan_tpu/ops/{replaces}',

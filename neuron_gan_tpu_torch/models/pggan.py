@@ -1,7 +1,8 @@
 """Progressively-growing GAN (PGGAN) as PyTorch modules, NCHW.
 
-Counterpart of neuron_gan_tpu/models/pggan.py, unpacked or in the 2x2
-packed layout, in float32, 'mixed' or bfloat16.  As there, the parameters of every phase exist from
+Counterpart of neuron_gan_tpu/models/pggan.py, unpacked or in the 2x2 and
+2x4 packed layouts, in float32, 'mixed' or bfloat16.  As there, the
+parameters of every phase exist from
 the start and the forward takes ``(phase, alpha)``: ``alpha=None`` is the
 steady state, a float the fade-in blend (reference models.py:344-351 for
 G, :516-524 for D).  Parameter names follow the JAX pytree paths
@@ -32,6 +33,16 @@ There ``use_kernels`` also puts the LReLU + 4-group PixelNorm after each
 conv1 in the same kernel pair, and runs each conv2 with its epilogue in
 the fused packed conv kernel pair (ops/packed_conv_lrelu_pn.py) -- what
 ``pallas_epilogue`` and ``pallas_conv`` do in the JAX package.
+
+With ``packed_lanes=128`` the packed blocks of 16 channels run in the 2x4
+layout (ops/packed.py; JAX ``_use_packed8``, ``_want_packed8_g/_d``): at
+fused boundaries natively from the level boundary on (G from the fused
+up-conv to to_rgb, D from from_rgb through its 2x4 levels to the exit
+into the 2x2 layout), at decomposed ones as a repack around the block's
+epilogues and conv2.  The packed state a block hands on is False, True
+(2x2) or 'p8' (2x4).  Under ``use_kernels`` both epilogues of a 2x4
+block run in the LReLU + PixelNorm pair at 8 groups, conv2 a plain conv
+before the second (the JAX package has no 2x4 Pallas kernel).
 
 ``compute_dtype`` sets the activations' dtype (``PGConfig.dtype``); the
 parameters stay float32 and every conv casts its weight to the
@@ -79,20 +90,23 @@ class PGConfig:
     # None allows TF32 -- see precision_scope
     precision: Optional[str] = 'highest'
     # every block's LReLU + PixelNorm in the CUDA kernel pairs: unpacked
-    # blocks, and conv1 of packed ones, in the LReLU + PixelNorm pair (the
-    # JAX package's use_pallas / pallas_epilogue); conv2 of packed blocks
-    # fused with its conv (pallas_conv).  The JAX pallas_conv gate also
+    # blocks, conv1 of 2x2 ones and both convs of 2x4 ones (at 8 groups)
+    # in the LReLU + PixelNorm pair (the JAX package's use_pallas /
+    # pallas_epilogue); conv2 of 2x2 blocks fused with its conv
+    # (pallas_conv).  The JAX pallas_conv gate also
     # needs precision=None, because its MXU dot runs at default (bf16
     # pass) precision; the fused conv kernel accumulates in true float32,
     # so here it runs at 'highest' too.  Under 'mixed' the unpacked blocks
-    # keep the kernel pair, where the JAX package falls back to its
+    # and the 2x4 ones keep the kernel pair, where the JAX package runs its
     # composed f32-stats epilogue: both compute lrelu -> PixelNorm with
     # float32 statistics, up to one bfloat16 rounding (of the lrelu).
     use_kernels: bool = False
     # blocks whose convs run at this resolution or above run in the 2x2
-    # space-to-depth packed layout (ops/packed.py); None disables.  The
-    # JAX package's 2x4 layout has no field here (not ported).
+    # space-to-depth packed layout (ops/packed.py); None disables
     packed_min_res: Optional[int] = None
+    # 128: packed blocks of 16 channels (64 packed) in the 2x4 layout, as
+    # in the JAX package; 64 or None keep the 2x2 layout
+    packed_lanes: Optional[int] = None
     # the packed level boundaries fused into one conv each
     # (ops/packed.py::up2_equalized_conv3x3, pool2_*): None = fused iff
     # precision is None, as in the JAX package
@@ -114,6 +128,9 @@ class PGConfig:
                 and self.packed_min_res <= self.image_size_init):
             raise ValueError('packed_min_res must exceed the stem/head '
                              'resolution (image_size_init)')
+        if self.packed_lanes not in (None, 64, 128):
+            raise ValueError(f'packed_lanes must be None, 64 or 128, got '
+                             f'{self.packed_lanes}')
 
     @property
     def dtype(self) -> torch.dtype:
@@ -232,6 +249,62 @@ def _packed_epilogue(x, cfg: PGConfig):
                                 f32_stats=cfg.mixed)
 
 
+def _use_packed8(cfg: PGConfig, x_packed) -> bool:
+    """Run this 2x2 block's epilogues and conv2 in the 2x4 layout (the
+    decomposed routes' repack)?  Only 64 packed channels (16 original)
+    gain lanes in the JAX package's rule; the 2x2 width must be even."""
+    return (cfg.packed_lanes == 128 and x_packed.shape[1] == 64
+            and x_packed.shape[3] % 2 == 0)
+
+
+def _want_packed8_g(cfg: PGConfig, out_res: int, feat: int) -> bool:
+    """Enter the 2x4 layout natively at this G level boundary: the fused
+    up-conv, fewer than 32 channels, and a 2x4 width that is even."""
+    return (cfg.packed_lanes == 128 and cfg.fused_up2
+            and _want_packed(cfg, out_res) and feat * 4 < 128
+            and out_res % 8 == 0)
+
+
+def _want_packed8_d(cfg: PGConfig, res: int, feat: int) -> bool:
+    """Enter or stay in the 2x4 layout at this D level: the fused pool
+    boundary, fewer than 32 channels, and a 2x4 width that survives the
+    stride-2 pool."""
+    return (cfg.packed_lanes == 128 and cfg.fused_pool
+            and _want_packed(cfg, res) and feat * 4 < 128
+            and res % 8 == 0)
+
+
+def _packed8_epilogue(x, cfg: PGConfig):
+    """LReLU -> 8-group PixelNorm in the 2x4 layout: the CUDA kernel pair
+    at n_groups=8 when cfg.use_kernels, the composed ops otherwise.  Under
+    'mixed' the JAX package rounds the LeakyReLU to bfloat16 before its
+    float32-statistics PixelNorm; the kernel pair keeps it in float32 (as
+    in the unpacked blocks, ``_epilogue``)."""
+    if cfg.use_kernels:
+        return fused_lrelu_pixel_norm(x, 8, cfg.neg_slope, 1e-8)
+    return pk.packed_pixel_norm(leaky_relu(x, cfg.neg_slope),
+                                f32_stats=cfg.mixed, n_groups=8)
+
+
+def _packed8_conv_epilogue(x, conv: Conv, cfg: PGConfig):
+    """2x4 stride-1 conv3x3 (a plain conv) -> LReLU -> 8-group
+    PixelNorm."""
+    return _packed8_epilogue(
+        pk.packed8_equalized_conv3x3(x, conv.weight, conv.bias,
+                                     neg_slope=cfg.neg_slope), cfg)
+
+
+def _packed_block_tail(x, block, cfg: PGConfig):
+    """A 2x2 block after its conv1: epilogue, conv2 and its epilogue, in
+    the 2x4 layout when ``_use_packed8`` (repacked around it)."""
+    if _use_packed8(cfg, x):
+        x = _packed8_epilogue(pk.space_to_depth_w(x), cfg)
+        return pk.depth_to_space_w(
+            _packed8_conv_epilogue(x, block['conv2'], cfg))
+    x = _packed_epilogue(x, cfg)
+    return _packed_conv_epilogue(x, block['conv2'], cfg)
+
+
 def _packed_conv_epilogue(x, conv: Conv, cfg: PGConfig):
     """Packed stride-1 conv3x3 -> LReLU -> 4-group PixelNorm: one fused
     kernel Function when cfg.use_kernels, the composed packed conv and
@@ -285,11 +358,13 @@ class GeneratorPG(nn.Module):
         x = pixel_norm(leaky_relu(x, cfg.neg_slope))
         return pixel_norm(leaky_relu(self.stem['conv'](x), cfg.neg_slope))
 
-    def _block(self, x, packed_in: bool, i: int):
+    def _block(self, x, packed_in, i: int):
         """Block i (upsample, then two convs at resolution(i+1)); returns
-        (x, packed_out), packed iff that resolution is >= packed_min_res."""
+        (x, packed_out): False below packed_min_res, 'p8' where the fused
+        up-conv enters the 2x4 layout, else True (2x2)."""
         p, cfg = self.blocks[i], self.cfg
-        if not _want_packed(cfg, cfg.resolution(i + 1)):
+        out_res = cfg.resolution(i + 1)
+        if not _want_packed(cfg, out_res):
             x = upsample2_bilinear(x)
             x = _epilogue(p['conv1'](x), cfg)
             return _epilogue(p['conv2'](x), cfg), False
@@ -297,8 +372,15 @@ class GeneratorPG(nn.Module):
         if cfg.fused_up2 and c1.bias is None:
             # upsample + conv1 as one conv (JAX: 4x fewer MACs, no
             # interleave; sums reordered against the decomposed ops)
-            if packed_in:
+            if packed_in == 'p8':
+                x = pk.depth_to_space8(x)
+            elif packed_in:
                 x = pk.depth_to_space(x)
+            if _want_packed8_g(cfg, out_res, c1.weight.shape[0]):
+                # the level lives in the 2x4 layout from the boundary on
+                x = _packed8_epilogue(pk.up2_equalized_conv3x3_p8(
+                    x, c1.weight, neg_slope=cfg.neg_slope), cfg)
+                return _packed8_conv_epilogue(x, p['conv2'], cfg), 'p8'
             x = pk.up2_equalized_conv3x3(x, c1.weight,
                                          neg_slope=cfg.neg_slope)
         else:
@@ -308,15 +390,21 @@ class GeneratorPG(nn.Module):
                 x = pk.space_to_depth(upsample2_bilinear(x))
             x = pk.packed_equalized_conv3x3(x, c1.weight, c1.bias,
                                             neg_slope=cfg.neg_slope)
-        x = _packed_epilogue(x, cfg)
-        return _packed_conv_epilogue(x, p['conv2'], cfg), True
+        return _packed_block_tail(x, p, cfg), True
 
-    def _to_rgb(self, x, packed: bool, i: int):
+    def _to_rgb(self, x, packed, i: int):
         conv = self.to_rgb[i]
-        y = pk.packed_conv1x1(x, conv.weight, conv.bias) if packed else conv(x)
+        if packed == 'p8':
+            y = pk.packed8_conv1x1(x, conv.weight, conv.bias)
+        elif packed:
+            y = pk.packed_conv1x1(x, conv.weight, conv.bias)
+        else:
+            y = conv(x)
         if self.cfg.mixed:
             y = y.float()       # the image leaves G in float32
         y = torch.tanh(y)
+        if packed == 'p8':
+            return pk.depth_to_space8(y)
         return pk.depth_to_space(y) if packed else y
 
     def forward(self, z, phase: int, alpha=None):
@@ -366,19 +454,37 @@ class DiscriminatorPG(nn.Module):
 
     def _from_rgb(self, x, res: int, i: int):
         """from_rgb[i] of an image at resolution ``res``; returns
-        (y, packed)."""
-        conv = self.from_rgb[i]
-        if not _want_packed(self.cfg, res):
+        (y, packed), packed False, True (2x2) or 'p8' (2x4)."""
+        conv, cfg = self.from_rgb[i], self.cfg
+        if not _want_packed(cfg, res):
             return conv(x), False
+        if _want_packed8_d(cfg, res, conv.weight.shape[0]):
+            return pk.packed8_conv1x1(pk.space_to_depth8(x), conv.weight,
+                                      conv.bias), 'p8'
         return pk.packed_conv1x1(pk.space_to_depth(x), conv.weight,
                                  conv.bias), True
 
-    def _block(self, y, packed_in: bool, i: int, entry_res: int):
+    def _block(self, y, packed_in, i: int, entry_res: int):
         """Block i: pool to entry_res/2, then two convs there; returns
-        (y, packed_out), packed iff entry_res/2 >= packed_min_res."""
+        (y, packed_out): False below packed_min_res, 'p8' where a 2x4 input
+        stays in the 2x4 layout, else True (2x2)."""
         p, cfg = self.blocks[i], self.cfg
         c1 = p['conv1']
         packed_out = _want_packed(cfg, entry_res // 2)
+        if packed_in == 'p8' and cfg.fused_pool and packed_out:
+            # the native 2x4 boundary: stay in the 2x4 layout, or exit
+            # into the 2x2 layout with a stride (2, 1) conv
+            out_p8 = _want_packed8_d(cfg, entry_res // 2, c1.weight.shape[0])
+            y = pk.pool2_equalized_conv3x3_p8(y, c1.weight, c1.bias,
+                                              neg_slope=cfg.neg_slope,
+                                              out_packed8=out_p8)
+            if out_p8:
+                y = _packed8_epilogue(y, cfg)
+                return _packed8_conv_epilogue(y, p['conv2'], cfg), 'p8'
+            return _packed_block_tail(y, p, cfg), True
+        if packed_in == 'p8':
+            # no native boundary for this exit: repack to the 2x2 layout
+            y = pk.depth_to_space_w(y)
         if packed_in and cfg.fused_pool:
             # avg-pool (+ repack) + conv1 as one conv
             fused = (pk.pool2_equalized_conv3x3 if packed_out
@@ -392,8 +498,7 @@ class DiscriminatorPG(nn.Module):
         if not packed_out:
             y = _epilogue(y, cfg)
             return _epilogue(p['conv2'](y), cfg), False
-        y = _packed_epilogue(y, cfg)
-        return _packed_conv_epilogue(y, p['conv2'], cfg), True
+        return _packed_block_tail(y, p, cfg), True
 
     def _head(self, y):
         s = self.cfg.neg_slope

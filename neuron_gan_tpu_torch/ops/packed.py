@@ -1,7 +1,7 @@
-"""The 2x2 space-to-depth packed layout, NCHW.
+"""The 2x2 and 2x4 space-to-depth packed layouts, NCHW.
 
-Counterpart of the 2x2 part of neuron_gan_tpu/ops/packed.py (kept as a
-copy: that module imports jax), with its fused level boundaries.  A packed
+Counterpart of neuron_gan_tpu/ops/packed.py (kept as a copy: that module
+imports jax), with its fused level boundaries.  A packed
 tensor is (B, 4C, H/2, W/2): the 2x2 pixel block at (2p+a, 2q+b) moves
 into channels, with packed channel index ``(a*2 + b) * C + i``
 (parity-major, original channel minor) -- the JAX package's channel
@@ -20,6 +20,13 @@ block into one conv (derivations in the JAX module): G's upsample + conv
 (``pool2_equalized_conv3x3``) and avg-pool + conv where D leaves the packed
 layout (``pool2_unpacked_equalized_conv3x3``).  Each computes its
 decomposed chain's function with the sums in another order.
+
+The 2x4 layout packs the 2x2 one once more along W: (B, 8C, H/2, W/4),
+packed channel ``b2 * 4C + (a*2 + b1) * C + i`` for the pixel at
+(2p + a, 4q + 2*b2 + b1) -- the JAX package's order, so its 8 parity
+groups are contiguous blocks of C channels.  Its convs, 1x1 convs and
+native level boundaries (``packed8_*``, ``*_p8``) scatter the 2x2
+kernels along W, exactly; the spatial extent is H/2 x W/4, not square.
 """
 
 import functools
@@ -89,9 +96,51 @@ def _pool_taps():
     return t
 
 
+def _pack_w_transfer_tensor():
+    """Constant 0/1 tensor T[Q2+1, b2', b2, q1+1]: the W-only pack of a
+    packed kernel's taps, the 1-D analogue of _pack_transfer_tensor."""
+    t = np.zeros((3, 2, 2, 3), np.float32)
+    for b2 in (0, 1):
+        for q1 in (-1, 0, 1):
+            q2, bp = divmod(b2 + q1, 2)
+            t[q2 + 1, bp, b2, q1 + 1] = 1.0
+    return t
+
+
+def _pool_w8_transfer(out_packed8):
+    """t[delta+1, b2i, (b2o,) tx]: the fused pool kernel's W taps over 2x4
+    input columns (and output columns when ``out_packed8``)."""
+    if out_packed8:
+        t = np.zeros((4, 2, 2, 4), np.float32)
+        for b2o in (0, 1):
+            for tx in range(4):
+                d, b2i = divmod(2 * b2o + tx - 1, 2)
+                t[d + 1, b2i, b2o, tx] = 1.0
+        return t
+    t = np.zeros((3, 2, 4), np.float32)
+    for tx in range(4):
+        d, b2i = divmod(tx - 1, 2)
+        t[d + 1, b2i, tx] = 1.0
+    return t
+
+
+def _up2_w8_taps():
+    """T[tx, b2, dx+1]: the fused up-conv's W taps for 2x4 output columns
+    (a stride-2 window of 4 over the edge-padded input)."""
+    t = np.zeros((4, 2, 3), np.float32)
+    for b2 in (0, 1):
+        for dx in (-1, 0, 1):
+            t[b2 + dx + 1, b2, dx + 1] = 1.0
+    return t
+
+
 _CONSTS = {'pack': _pack_transfer_tensor(),
            'up2': np.einsum('ptd,qse->pqdets', _up2_taps(), _up2_taps()),
-           'pool': np.einsum('pad,qbe->padqbe', _pool_taps(), _pool_taps())}
+           'pool': np.einsum('pad,qbe->padqbe', _pool_taps(), _pool_taps()),
+           'pack_w': _pack_w_transfer_tensor(),
+           'pool_w8': _pool_w8_transfer(True),
+           'pool_w8_out4': _pool_w8_transfer(False),
+           'up2_w8': _up2_w8_taps()}
 
 
 @functools.lru_cache(maxsize=None)
@@ -138,17 +187,18 @@ def packed_equalized_conv3x3(x_packed, weight, bias=None, *, neg_slope=0.2):
                                       b, padding=1)
 
 
-def packed_pixel_norm(x_packed, eps=1e-8, f32_stats=False):
+def packed_pixel_norm(x_packed, eps=1e-8, f32_stats=False, n_groups=4):
     """PixelNorm over the ORIGINAL channels: each parity group's C channels
     normalized on their own (the JAX package's packed_pixel_norm and
-    packed_pixel_norm_mxu compute this same function).
+    packed_pixel_norm_mxu compute this same function; ``n_groups=8``
+    their packed8_ forms, for the 2x4 layout).
 
     bfloat16 with ``f32_stats`` rounds where the JAX package's fast path
     (packed_pixel_norm_mxu) does: x^2 in bfloat16 (its MXU operand), the
     group sums in float32, the scale rounded to bfloat16, then one
     bfloat16 product."""
     b, c4, h, w = x_packed.shape
-    xg = x_packed.reshape(b * 4, c4 // 4, h, w)
+    xg = x_packed.reshape(b * n_groups, c4 // n_groups, h, w)
     if f32_stats and x_packed.dtype == torch.bfloat16:
         m = torch.mean((xg * xg).float(), dim=1, keepdim=True)
         out = xg * torch.rsqrt(m + eps).to(xg.dtype)
@@ -287,3 +337,175 @@ def pool2_unpacked_equalized_conv3x3(x_packed, weight, bias=None, *,
     wf = w[:, None, None].expand(co, 2, 2, ci, 3, 3).reshape(co, 4 * ci, 3, 3)
     b = None if bias is None else bias.to(x_packed.dtype)
     return F.conv2d(x_packed, wf.to(x_packed.dtype), b, padding=1)
+
+
+# --------------------------------------------------------------------------
+# The 2x4 layout: a second, W-only pack over the 2x2 one
+# --------------------------------------------------------------------------
+#
+# A packed conv's output column J of W-parity b2 reads 2x2 columns
+# 2J + b2 + q1 for its taps q1 in {-1, 0, 1}; (Q2, b2') = divmod(b2 + q1, 2)
+# maps each (b2, q1) to one 2x4 tap and input parity, so the 2x4 kernel is
+# a collision-free scatter of the 2x2 one, 3x3 again, and its zero padding
+# is exact (derivation in the JAX module).
+
+def space_to_depth_w(x):
+    """(B, K, H, W) -> (B, 2K, H, W/2), channel order (b2, k)."""
+    b, k, h, w = x.shape
+    x = x.reshape(b, k, h, w // 2, 2)
+    return x.permute(0, 4, 1, 2, 3).reshape(b, 2 * k, h, w // 2)
+
+
+def depth_to_space_w(x):
+    """(B, 2K, H, W) -> (B, K, H, 2W), inverse of space_to_depth_w."""
+    b, k2, h, w = x.shape
+    x = x.reshape(b, 2, k2 // 2, h, w)
+    return x.permute(0, 2, 3, 4, 1).reshape(b, k2 // 2, h, 2 * w)
+
+
+def space_to_depth8(x):
+    """(B, C, H, W) -> (B, 8C, H/2, W/4) in one copy, channel order
+    (b2, a, b1, i): space_to_depth_w(space_to_depth(x))."""
+    b, c, h, w = x.shape
+    x = x.reshape(b, c, h // 2, 2, w // 4, 2, 2)   # (i, p, a, q, b2, b1)
+    x = x.permute(0, 5, 3, 6, 1, 2, 4)            # (b2, a, b1, i, p, q)
+    return x.reshape(b, 8 * c, h // 2, w // 4)
+
+
+def depth_to_space8(x):
+    """(B, 8C, H, W) -> (B, C, 2H, 4W), inverse of space_to_depth8."""
+    b, c8, h, w = x.shape
+    c = c8 // 8
+    x = x.reshape(b, 2, 2, 2, c, h, w)            # (b2, a, b1, i, p, q)
+    x = x.permute(0, 4, 5, 2, 6, 1, 3)            # (i, p, a, q, b2, b1)
+    return x.reshape(b, c, 2 * h, 4 * w)
+
+
+def pack_conv3x3_weight_w(w4):
+    """Packed kernel (K_o, K_i, 3, 3) -> the 2x4 kernel (2K_o, 2K_i, 3, 3)
+    such that conv(s2dw(x), W8, padding=1) == s2dw(conv(x, W4,
+    padding=1)); exact, as pack_conv3x3_weight."""
+    ko, ki = w4.shape[:2]
+    with precision_scope('highest'):
+        out = torch.einsum('qcbt,oipt->bocipq',
+                           _const('pack_w', w4.dtype, w4.device), w4)
+    return out.reshape(2 * ko, 2 * ki, 3, 3)
+
+
+def packed8_equalized_conv3x3(x_p8, weight, bias=None, *, neg_slope=0.2):
+    """Equalized-LR 3x3 conv in the 2x4 layout; ``weight`` is the ORIGINAL
+    (Co, Ci, 3, 3) kernel, ``bias`` the original (Co,)."""
+    w8 = pack_conv3x3_weight_w(
+        pack_conv3x3_weight(weight, _eq_scale3x3(weight, neg_slope)))
+    b = None if bias is None else bias.repeat(8).to(x_p8.dtype)
+    return F.conv2d(x_p8, w8.to(x_p8.dtype), b, padding=1)
+
+
+def packed8_conv1x1(x_p8, weight, bias=None):
+    """1x1 conv on each of the 2x4 layout's 8 parity groups: block-diagonal
+    over the 8 groups.  ``weight`` is the original (Co, Ci, 1, 1)."""
+    co, ci = weight.shape[:2]
+    wb = torch.block_diag(*[weight.reshape(co, ci)] * 8)
+    b = None if bias is None else bias.repeat(8).to(x_p8.dtype)
+    return F.conv2d(x_p8, wb.reshape(8 * co, 8 * ci, 1, 1).to(x_p8.dtype), b)
+
+
+# --------------------------------------------------------------------------
+# The native 2x4 level boundaries
+# --------------------------------------------------------------------------
+#
+# D: the fused pool kernel reads 2x2 columns 2c + tx - 1, tx in 0..3.  With
+# 2x4 output columns (c = 2J + b2o) the input column 2*j8 + b2i has
+# (j8 - 2J, b2i) = divmod(2*b2o + tx - 1, 2): a 4-tap stride-2 window over
+# 2x4 columns; with 2x2 output columns (the region's exit) divmod(tx - 1,
+# 2): 3 taps, stride 1 along W (H keeps stride 2).  G: the fused up-conv's
+# 2x2 output column K = 2*K8 + b2 reads edge-padded input columns K + dx,
+# i.e. 2*K8 + tx - 1 with tx = b2 + dx + 1: a 4-tap stride-2 window.
+# Both scatters are collision-free (derivations in the JAX module).
+
+def fuse_pool2_conv3x3_weight_w8(w, scale=1.0):
+    """OIHW (Co, Ci, 3, 3) kernel -> the fused pool + conv kernel for 2x4
+    input and output (8Co, 8Ci, 4, 4), strides (2, 2), padding 1."""
+    k4 = fuse_pool2_conv3x3_weight(w, scale)
+    ko, ki = k4.shape[:2]
+    with precision_scope('highest'):
+        out = torch.einsum('qcbt,oipt->bocipq',
+                           _const('pool_w8', w.dtype, w.device), k4)
+    return out.reshape(2 * ko, 2 * ki, 4, 4)
+
+
+def fuse_pool2_conv3x3_weight_w8_out4(w, scale=1.0):
+    """OIHW (Co, Ci, 3, 3) kernel -> the fused pool + conv kernel for 2x4
+    input and 2x2 output (4Co, 8Ci, 4, 3), strides (2, 1), padding 1: the
+    2x4 region's exit."""
+    k4 = fuse_pool2_conv3x3_weight(w, scale)
+    ko, ki = k4.shape[:2]
+    with precision_scope('highest'):
+        out = torch.einsum('qct,oipt->ocipq',
+                           _const('pool_w8_out4', w.dtype, w.device), k4)
+    return out.reshape(ko, 2 * ki, 4, 3)
+
+
+def pool2_equalized_conv3x3_p8(x_p8, weight, bias=None, *, neg_slope=0.2,
+                               out_packed8=True):
+    """D's level boundary in the 2x4 layout: the 2x4 rep of resolution R,
+    (B, 8Ci, R/2, R/4), to the 2x4 rep of R/2, (B, 8Co, R/4, R/8), or
+    with ``out_packed8=False`` the 2x2 rep, (B, 4Co, R/4, R/4).  The
+    function of pool2_equalized_conv3x3 on the repacked operands."""
+    scale = _eq_scale3x3(weight, neg_slope)
+    if out_packed8:
+        wf, stride, n = fuse_pool2_conv3x3_weight_w8(weight, scale), (2, 2), 8
+    else:
+        wf, stride, n = (fuse_pool2_conv3x3_weight_w8_out4(weight, scale),
+                         (2, 1), 4)
+    b = None if bias is None else bias.repeat(n).to(x_p8.dtype)
+    return F.conv2d(x_p8, wf.to(x_p8.dtype), b, stride=stride, padding=1)
+
+
+def fuse_up2_conv3x3_weight_w8(w, scale=1.0):
+    """OIHW (Co, Ci, 3, 3) kernel -> the fused upsample + conv kernel
+    emitting the 2x4 layout, (8Co, Ci, 3, 4): H stride 1, W stride 2 over
+    the edge-padded input."""
+    wf = fuse_up2_conv3x3_weight(w, scale)               # (4Co, Ci, 3, 3)
+    co4, ci = wf.shape[:2]
+    with precision_scope('highest'):
+        out = torch.einsum('qbt,oipt->boipq',
+                           _const('up2_w8', w.dtype, w.device), wf)
+    return out.reshape(2 * co4, ci, 3, 4)
+
+
+def up2_equalized_conv3x3_p8(x, weight, *, neg_slope=0.2):
+    """s2dw(up2_equalized_conv3x3(x)) as one conv: G's level boundary
+    emitting the 2x4 layout.  ``x`` is UNPACKED (B, Ci, n, n), n even and
+    >= 2; the output is the 2x4 rep of resolution 2n, (B, 8Co, n, n/2).
+    The border bands are up2_equalized_conv3x3's (the same float
+    expressions, ``_up2_border``), their columns split into (K8, b2)."""
+    b, _, n, n2 = x.shape
+    if n != n2 or n < 2 or n % 2:
+        raise ValueError(f'fused up2-conv into the 2x4 layout needs a '
+                         f'square input of even side, got {tuple(x.shape)}')
+    scale = _eq_scale3x3(weight, neg_slope)
+    co, m = weight.shape[0], n // 2
+    y = F.conv2d(F.pad(x, (1, 1, 1, 1), mode='replicate'),
+                 fuse_up2_conv3x3_weight_w8(weight, scale).to(x.dtype),
+                 stride=(1, 2))
+    w_s = weight * scale
+    # an output line (B, Co, 2n) of the original grid as its two parities
+    # (B, 2, Co, n): position 2K + q -> parity q at K
+    par = lambda t: t.reshape(b, co, n, 2).permute(0, 3, 1, 2)  # noqa: E731
+    top, bot = (par(t) for t in _up2_border(x, w_s, 2))
+    lf, rt = (par(t) for t in _up2_border(x, w_s, 3))
+    # y's channels (b2, p, q, o), spatial (J, K8): 2x2 column K = 2*K8 + b2
+    yv = y.view(b, 2, 2, 2, co, n, m)
+
+    def by_b2(t):
+        # (B, q, Co, K) -> (B, b2, q, Co, K8)
+        return t.reshape(b, 2, co, m, 2).permute(0, 4, 1, 2, 3)
+
+    # written over the conv's output, which its backward does not need;
+    # the columns claim the corners, as in the JAX package
+    yv[:, :, 0, :, :, 0] = by_b2(top)                          # p=0, J=0
+    yv[:, :, 1, :, :, n - 1] = by_b2(bot)                      # p=1, J=n-1
+    yv[:, 0, :, 0, :, :, 0] = lf                    # K=0: b2=0, q=0, K8=0
+    yv[:, 1, :, 1, :, :, m - 1] = rt                # K=2n-1: b2=1, q=1
+    return y

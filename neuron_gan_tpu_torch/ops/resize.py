@@ -20,6 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from neuron_gan_tpu_torch.runtime.device import precision_scope
+
 
 def upsample2_bilinear(x):
     """NCHW x2 bilinear upsample, align_corners=False.  bfloat16 takes the
@@ -103,8 +105,11 @@ def resize_antialias(x, out_size):
     dtype = torch.promote_types(x.dtype, torch.float32)
     wh = _resize_weights(h, oh, dtype, x.device)
     ww = _resize_weights(w, ow, dtype, x.device)
-    y = torch.matmul(wh, x.to(dtype))          # (..., oh, w)
-    y = torch.matmul(y, ww.T)                  # (..., oh, ow)
+    # TF32 off whatever the caller allows, as the JAX package's HIGHEST
+    # einsums (a data-pipeline resize, not a layer)
+    with precision_scope('highest'):
+        y = torch.matmul(wh, x.to(dtype))      # (..., oh, w)
+        y = torch.matmul(y, ww.T)              # (..., oh, ow)
     return y.to(x.dtype)
 
 

@@ -4,8 +4,9 @@
 
 Runs the flagship trainer (``flagship.py``) at steady 512^2 from random
 weights (seed 0) and a synthetic (16, 768, 768, 1) stack, once for each of
-its three configurations (unpacked, the 2x2 packed layout, and 'mixed' on
-the packed layout; kernels on in all), the packed and mixed ones again
+its four paths (unpacked, the 2x2 packed layout, 'mixed' on the packed
+layout, and the shipping step: 'mixed' with the 2x4 layout and the
+fast/shear augmentation; kernels on in all), the packed and mixed ones again
 with the kernels off (``use_kernels=False``), which gives the kernel
 path's gain over the plain path, and the mixed one with its level
 boundaries decomposed (``fuse_up2_conv=fuse_pool_conv=False``), which
@@ -17,7 +18,9 @@ wall time, the kernels launched per step (what a host-bound step pays
 for) and among them the fill kernels (zeros and ones tensors), device time
 and launches by kind (cuDNN/ATen convolution, the LeakyReLU+PixelNorm
 kernels K1 and K2, the fused packed conv kernels K3 -- its weight split
-included -- and K4, the rest) and the top kernels by device time; from the
+included -- and K4, the rest), K1 and K2 also by the group width of their
+template instance (on the shipping path width 16 is its 8-group launches,
+the 2x4 blocks' epilogues) and the top kernels by device time; from the
 second, the top ATen ops by the device time of the kernels they launch,
 with their input shapes; and the card's nvidia-smi name and power limit.
 
@@ -26,6 +29,7 @@ Needs a CUDA card; exits 2 without one.
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -33,9 +37,7 @@ import time
 import numpy as np
 import torch
 
-from neuron_gan_tpu_torch.flagship import (
-    flagship_chunk_spec, flagship_config, flagship_mixed_config,
-    flagship_packed_config)
+from neuron_gan_tpu_torch.flagship import PATHS
 from neuron_gan_tpu_torch.models import DiscriminatorPG, GeneratorPG
 from neuron_gan_tpu_torch.train_step import init_train_state, make_epoch_runner
 
@@ -59,6 +61,13 @@ def _kind(name):
     return 'other'
 
 
+def _k12_width(name):
+    """'fwd/16' for K1's instance of group width 16 ('bwd/...' for K2,
+    '/0' the runtime-width instance), or None for another kernel."""
+    m = re.search(r'lrelu_pn_(fwd|bwd)_kernel<[^,>]+,\s*(\d+)', name)
+    return f'{m.group(1)}/{m.group(2)}' if m else None
+
+
 def _device_us(evt):
     for attr in ('self_device_time_total', 'self_cuda_time_total'):
         if hasattr(evt, attr):
@@ -78,11 +87,11 @@ def _trace(run_epochs, record_shapes):
     return prof, wall_us
 
 
-def profile(name, cfg, images, smi):
+def profile(name, cfg, chunk_spec, images, smi):
     init = torch.Generator().manual_seed(SEED)
     state = init_train_state(GeneratorPG(cfg, init, device='cuda'),
                              DiscriminatorPG(cfg, init, device='cuda'))
-    spec = flagship_chunk_spec(cfg.n_phases - 1)
+    spec = chunk_spec(cfg.n_phases - 1)
     rng = torch.Generator(device='cuda').manual_seed(SEED)
     one_epoch = make_epoch_runner(cfg, spec, 1)
     one_epoch(state, images, rng, 1)                # warm-up epoch
@@ -95,6 +104,7 @@ def profile(name, cfg, images, smi):
     steps = 2 * spec.n_images // spec.batch_size
     prof, wall_us = _trace(epochs(2), record_shapes=False)
     by_kind, n_by_kind, top, launches, fills = {}, {}, [], 0, 0
+    k12 = {}
     for evt in prof.key_averages():
         us = _device_us(evt)
         if us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA:
@@ -102,6 +112,10 @@ def profile(name, cfg, images, smi):
         kind = _kind(evt.key)
         by_kind[kind] = by_kind.get(kind, 0.0) + us
         n_by_kind[kind] = n_by_kind.get(kind, 0) + evt.count
+        width = _k12_width(evt.key)
+        if width:
+            ms, n = k12.get(width, (0.0, 0))
+            k12[width] = (ms + us / steps / 1e3, n + evt.count / steps)
         top.append((us, evt.key, evt.count))
         launches += evt.count
         if 'fill' in evt.key.lower():
@@ -129,6 +143,8 @@ def profile(name, cfg, images, smi):
                                        for k, v in by_kind.items()},
         'kernels_per_step_by_kind': {k: v / steps
                                      for k, v in n_by_kind.items()},
+        'k12_by_group_width': {k: {'ms_per_step': ms, 'calls_per_step': n}
+                               for k, (ms, n) in sorted(k12.items())},
         'top_kernels': [{'name': n[:120], 'ms_per_step': us / steps / 1e3,
                          'calls_per_step': c / steps}
                         for us, n, c in top[:15]],
@@ -148,17 +164,22 @@ def main():
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     images = torch.from_numpy(np.random.default_rng(SEED).random(
         (16, 768, 768, 1)).astype(np.float32)).to('cuda')
-    packed, mixed = flagship_packed_config(), flagship_mixed_config()
-    for name, cfg in (('unpacked', flagship_config()), ('packed', packed),
-                      ('packed_plain',
-                       dataclasses.replace(packed, use_kernels=False)),
-                      ('mixed', mixed),
-                      ('mixed_plain',
-                       dataclasses.replace(mixed, use_kernels=False)),
-                      ('mixed_decomposed',
-                       dataclasses.replace(mixed, fuse_up2_conv=False,
-                                           fuse_pool_conv=False))):
-        print(json.dumps(profile(name, cfg, images, smi)), flush=True)
+    runs = []
+    for name, (make, chunk_spec) in PATHS.items():
+        cfg = make()
+        runs.append((name, cfg, chunk_spec))
+        if name in ('packed', 'mixed'):
+            runs.append((f'{name}_plain',
+                         dataclasses.replace(cfg, use_kernels=False),
+                         chunk_spec))
+        if name == 'mixed':
+            runs.append(('mixed_decomposed',
+                         dataclasses.replace(cfg, fuse_up2_conv=False,
+                                             fuse_pool_conv=False),
+                         chunk_spec))
+    for name, cfg, chunk_spec in runs:
+        print(json.dumps(profile(name, cfg, chunk_spec, images, smi)),
+              flush=True)
     return 0
 
 

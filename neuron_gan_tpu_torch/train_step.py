@@ -105,8 +105,8 @@ class ChunkSpec:
     # final lr; the reference resets only from the following epoch)
     lr_prev_final: float = -1.0
     ema_beta: float = 0.0
-    fast_augment: bool = False      # ROADMAP A6.2
-    shear_warp: object = False      # ROADMAP A6.3
+    fast_augment: bool = False      # AugmentSpec.fast
+    shear_warp: object = False      # True, False or 'auto' (resolve_shear)
     # penalize the critic-loss fake batch (z1) instead of a fresh z2
     gp_reuse_fakes: bool = False
     gp_remat: bool = False          # ROADMAP (gp_remat)

@@ -20,15 +20,18 @@ from neuron_gan_tpu.data.augment import (
 from neuron_gan_tpu.utils.latents import sample_latent_vec as j_sample_latent
 
 from neuron_gan_tpu_torch.data.augment import (
-    AugmentSpec, augment_batch, draw_augment)
+    AugmentSpec, augment_batch, draw_augment, warp_frame)
 from neuron_gan_tpu_torch.utils.latents import sample_latent_vec
 
 
 def jax_augment_draws(key, batch, frame, spec):
-    """The JAX package's per-image augmentation draws for ``key``."""
+    """The JAX package's per-image augmentation draws for ``key`` on raw
+    frames of side ``frame``: its translation range is a fraction of the
+    frame the warp sees (``warp_frame``, the fast path's phase-scale
+    frame)."""
     out = {k: [] for k in ('angle', 'tx', 'ty', 'flip', 'brightness_first',
                            'brightness', 'contrast')}
-    max_t = spec.translation * frame
+    max_t = spec.translation * warp_frame(spec, frame)
     for k in jax.random.split(key, batch):
         k_a, k_t1, k_t2, k_f, k_j = jax.random.split(k, 5)
         k_order, k_b, k_c = jax.random.split(k_j, 3)
@@ -105,12 +108,6 @@ def test_draw_augment_ranges_and_determinism():
     assert 0.75 <= float(a['brightness'].min()) and float(a['contrast'].max()) <= 1.25
     assert a['flip'].dtype == torch.bool
     assert draw_augment(torch.Generator(), 4, 48, AugmentSpec(32, 16, augment=False)) is None
-
-
-@pytest.mark.parametrize('kw', [{'fast': True}, {'fast': True, 'shear': True}])
-def test_unported_augment_paths_raise(kw):
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        AugmentSpec(crop_size=16, out_size=16, **kw)
 
 
 def test_shear_without_fast_raises_as_jax():

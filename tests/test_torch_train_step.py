@@ -380,9 +380,11 @@ def load_chip_smoke():
     return smoke
 
 
-def count_launches(monkeypatch, cfg, spec, params):
-    """Every kernel wrapper's launches in one batch step of ``cfg``, keyed
-    as chip_smoke.py keys its counters, counted by wrapping each launch."""
+def count_launches(monkeypatch, cfg, spec, params, frame=None):
+    """Every kernel wrapper's launches in one batch step of ``cfg`` on raw
+    frames of side ``frame`` (default PACKED_FRAME), keyed as
+    chip_smoke.py keys its counters, counted by wrapping each launch."""
+    frame = frame or PACKED_FRAME
     import neuron_gan_tpu_torch.ops.packed_conv_lrelu_pn as pcl
     smoke = load_chip_smoke()
     calls = {'k1': {}, 'k2': {}, 'k3': {}, 'k4': {}}
@@ -401,10 +403,9 @@ def count_launches(monkeypatch, cfg, spec, params):
     monkeypatch.setattr(pcl, '_dz', count('k4', pcl._dz, False))
     state = port_state(params, spec, cfg)
     gen = torch.Generator().manual_seed(0)
-    draws = tts.draw_batch(gen, cfg, tts.ChunkSpec(**spec), 2, PACKED_FRAME)
+    draws = tts.draw_batch(gen, cfg, tts.ChunkSpec(**spec), 2, frame)
     tts.make_batch_step(cfg, tts.ChunkSpec(**spec))(
-        state, torch.rand(2, PACKED_FRAME, PACKED_FRAME, 1, generator=gen), draws,
-        0.5, LR, 0.0)
+        state, torch.rand(2, frame, frame, 1, generator=gen), draws, 0.5, LR, 0.0)
     return calls, smoke
 
 
