@@ -1,4 +1,4 @@
-"""PyTorch/CUDA port of neuron_gan_tpu for NVIDIA Hopper.
+"""PyTorch/CUDA port of the JAX package (neuron_gan_tpu/) for NVIDIA Hopper.
 
 Module names mirror the JAX package (``neuron_gan_tpu``) so each piece has
 an obvious counterpart; the JAX package is the numerical reference and the

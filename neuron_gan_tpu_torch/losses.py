@@ -10,11 +10,15 @@ phase and alpha bound.  Parity map to the reference (loss_functions.py):
 * ``d_grad_pen_loss``: WGAN-GP on per-sample interpolates,
   ``lambda * <(||dD/dx_hat||_2 - 1)^2>`` with the norm over (C, H, W)
   (:148-180).  The inner gradient keeps its graph (``create_graph``), so
-  differentiating the penalty is a gradient of a gradient;
+  differentiating the penalty is a gradient of a gradient.  ``remat``
+  runs the critic's forward over the interpolates under
+  ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint``): the
+  same operations, recomputed when the inner gradient needs them;
 * ``similarity_loss`` (:185-205) and the LSGAN losses (:79-143).
 """
 
 import torch
+import torch.utils.checkpoint
 
 
 def _f32(t):
@@ -44,17 +48,31 @@ def g_w_loss(g_apply, d_apply, z):
 def d_grad_pen_loss(d_apply, real_images, fake_images, epsilon, gp_lambda,
                     remat=False):
     """Gradient penalty on interpolates.  ``epsilon`` is (B,) or
-    (B, 1, 1, 1) uniform; ``fake_images`` carry no gradient."""
-    if remat:
-        raise NotImplementedError('gp_remat is not ported yet (ROADMAP)')
+    (B, 1, 1, 1) uniform; ``fake_images`` carry no gradient.
+
+    With ``remat`` the critic's forward runs under a non-reentrant
+    ``torch.utils.checkpoint`` (the reentrant form refuses
+    ``autograd.grad``): its activations are recomputed inside the inner
+    gradient, in the same precision and autocast state.  The outer
+    backward then holds the recomputed graph, so unlike JAX's
+    ``jax.checkpoint`` this may save little memory; the values are the
+    same."""
     if gp_lambda <= 0:
         return torch.zeros((), dtype=real_images.dtype,
                            device=real_images.device)
     eps = epsilon.reshape(-1, 1, 1, 1).to(real_images.dtype)
     x_hat = (eps * real_images + (1.0 - eps) * fake_images.detach())
     x_hat = x_hat.detach().requires_grad_(True)
-    grad, = torch.autograd.grad(d_apply(x_hat).sum(), x_hat,
-                                create_graph=True)
+
+    def score(x):
+        return d_apply(x).sum()
+
+    if remat:
+        total = torch.utils.checkpoint.checkpoint(score, x_hat,
+                                                  use_reentrant=False)
+    else:
+        total = score(x_hat)
+    grad, = torch.autograd.grad(total, x_hat, create_graph=True)
     grad = _f32(grad)  # f32 accumulation for the norm reduction
     norms = torch.sqrt(torch.sum(grad * grad, dim=(1, 2, 3)))
     return gp_lambda * torch.mean((norms - 1.0) ** 2)

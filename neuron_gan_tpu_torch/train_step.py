@@ -109,7 +109,9 @@ class ChunkSpec:
     shear_warp: object = False      # True, False or 'auto' (resolve_shear)
     # penalize the critic-loss fake batch (z1) instead of a fresh z2
     gp_reuse_fakes: bool = False
-    gp_remat: bool = False          # ROADMAP (gp_remat)
+    # D's forward in the penalty under torch.utils.checkpoint
+    # (d_grad_pen_loss's remat)
+    gp_remat: bool = False
 
     @property
     def n_full_batches(self):
@@ -249,8 +251,6 @@ def make_batch_step(cfg: PGConfig, spec: ChunkSpec):
     (STAT_NAMES) weighted by the batch size, on the device.  After it, the
     parameters' ``.grad`` hold the last critic step's and the generator
     step's gradients, taken before their optimizer steps."""
-    if spec.gp_remat:
-        raise NotImplementedError('gp_remat is not ported yet (ROADMAP)')
     aug_spec = _augment_spec(cfg, spec)
 
     def step(state: TrainState, raw_batch, draws, alpha, lr, sim_lam):
@@ -288,7 +288,7 @@ def make_batch_step(cfg: PGConfig, spec: ChunkSpec):
                     with torch.no_grad():
                         fake = g_apply(z2)
                 gp = d_grad_pen_loss(d_apply, images, fake, eps,
-                                     spec.gp_lambda)
+                                     spec.gp_lambda, remat=spec.gp_remat)
             return loss_w + gp, (sr, sf, gp)
 
         sr = sf = gp = d_loss = zero

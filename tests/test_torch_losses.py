@@ -132,8 +132,21 @@ def test_grad_pen_zero_lambda_and_remat():
     x = torch.zeros(2, 1, 4, 4)
     assert float(tl.d_grad_pen_loss(lambda v: v.sum((1, 2, 3)), x, x,
                                     torch.zeros(2), 0.0)) == 0.0
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tl.d_grad_pen_loss(lambda v: v, x, x, torch.zeros(2), 10.0, remat=True)
+    # remat recomputes the critic's forward inside the penalty's gradient:
+    # the same values and second-order gradients, bit for bit on the CPU
+    gen = torch.Generator().manual_seed(0)
+    w = torch.randn(1, 1, 4, 4, generator=gen, requires_grad=True)
+    real, fake = torch.rand(2, 1, 4, 4, generator=gen), torch.rand(2, 1, 4, 4, generator=gen)
+    eps = torch.rand(2, generator=gen)
+
+    def critic(v):
+        return torch.tanh(v * w).pow(2).sum((1, 2, 3))
+
+    runs = []
+    for remat in (False, True):
+        gp = tl.d_grad_pen_loss(critic, real, fake, eps, 10.0, remat=remat)
+        runs.append((gp, *torch.autograd.grad(gp, w)))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 @pytest.mark.parametrize('dtype,rel', [(torch.float32, 1e-5),

@@ -566,13 +566,6 @@ def test_adam_matches_jax_optimizer_two_steps():
     np.testing.assert_allclose(p.detach().numpy(), np.asarray(jw), rtol=1e-5, atol=1e-7)
 
 
-@pytest.mark.parametrize('field', ['gp_remat'])
-def test_unported_spec_fields_raise(field):
-    spec = tts.ChunkSpec(**dict(SPEC, **{field: True}))
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tts.make_batch_step(TCFG, spec)
-
-
 def test_flagship_mixed_config_is_the_jax_shipping_numerics():
     # the JAX package's flagship_config(packed_lanes=None): 'mixed' at
     # precision=None on the 2x2 layout, fused boundaries, every kernel on
