@@ -3,6 +3,8 @@
 check it.
 
     python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py --ranks N     # N >= 2 cards: the dp_nccl phase
+
 
 Four paths of the port are driven, all at the flagship geometry (16^2 ..
 512^2; ``flagship.PATHS``): the unpacked layout (``flagship_config``) and
@@ -45,6 +47,23 @@ Phases, each printing one JSON line:
    gp_remat   one shipping 512^2 step with gp_remat off (twice) and on:
               gradients within 3x the off arms' distance, exact launch
               counts, each arm's peak device memory;
+   stream     the shipping path at steady 512^2 for 3 epochs on the
+              flagship stack, resident (twice) and streamed from the host
+              (``streaming.run_epochs_streaming``, one batch a group: what
+              a 16 MB budget gives): stats and parameters as close to the
+              resident run as the second resident run is, a planted fault
+              (groups swapped) outside that, equal launch counts; then a
+              train-CLI session with hbm_budget_mb=16 (``check_stream``);
+   dp         two ranks sharing the card over gloo, 4 rows each of one
+              shipping 512^2 step: reduced gradients against the 1-process
+              step within the shipping parity bound, summed stats within
+              DP_STATS_BOUND, three planted faults outside, K1-K4 launched
+              on each rank (``dp_step_parity``); then the train CLI with
+              mesh_shape={'data': 1} under NCCL (``check_dp``);
+   legacy     the train CLI under wgan=True at the config_ex geometry,
+              epochs 1-4 then resumed to 6: finite stats, the critic within
+              +-0.01, family 'wgan', a bit-exact resume, no ported kernel
+              launched (``check_legacy``);
 4. kernels    each kernel against its plain PyTorch version on the card, in
               float32 and in bfloat16, at every shape a training path gives
               it (plus ragged cases): forward, backward and a GP-style
@@ -84,10 +103,22 @@ Phases, each printing one JSON line:
 
 Then the kernel table (one JSON line: a float32 and a bfloat16 row for each
 kernel, each with its launches per steady 512^2 step, as counted, and the
-sum of their bounds; K4's with every shape's times), the card's nvidia-smi
+sum of their bounds, and its launches on the stream and dp phases' paths;
+K4's with every shape's times), the card's nvidia-smi
 line, and last ``{"ok": true, "device":
 {...}}``.  Any failed check raises and the script
 exits non-zero without that line; without CUDA it exits 2 at once.
+
+With ``--ranks N`` it runs, after env and build, only this phase, on N
+cards, and then prints every card's nvidia-smi line and the same last line:
+
+   dp_nccl    N ranks over NCCL, rank r on cuda:r: the ``dp`` phase's batch
+              step, its bounds and planted faults; then the train CLI's
+              session under mesh_shape={'data': N} through every phase to
+              epoch 16 with the similarity loss on: the ranks' states and
+              stats equal bit for bit, rank 0's checkpoint finite, K1-K4 on
+              every rank, the parameters within the shipping parity bound
+              of a 1-process session (``check_dp_nccl``).
 """
 
 import argparse
@@ -112,11 +143,16 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def nvidia_smi_line():
+def nvidia_smi_lines():
+    """Every card's name and power limit."""
     out = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
         capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
+    return out.stdout.strip().splitlines()
+
+
+def nvidia_smi_line():
+    return nvidia_smi_lines()[0]
 
 
 def cuda_ms(fn, iters=30, warmup=3):
@@ -1181,10 +1217,11 @@ def synthetic_neuron(rng, size=512):
     return img
 
 
-def write_cli_config(path, root, dataset_dir, seed):
+def write_cli_config(path, root, dataset_dir, seed, **extra):
     """The reference's config_ex at the flagship geometry with the port's
     execution knobs at their defaults (the JAX package's shipping step),
-    spelled out, under a short schedule through every phase and fade."""
+    spelled out, under a short schedule through every phase and fade;
+    ``extra`` knobs replace those."""
     knobs = dict(
         ID=CLI_ID, dataset_dir=dataset_dir, data_dir=f'{root}/data',
         images_dir=f'{root}/images', weights_dir=f'{root}/weights',
@@ -1198,6 +1235,7 @@ def write_cli_config(path, root, dataset_dir, seed):
         compute_dtype='mixed', matmul_precision='default', packed_min_res=64,
         packed_lanes=128, fast_augment=True, shear_warp='auto',
         gp_reuse_fakes=True, use_kernels=True, **CLI_SCHEDULE)
+    knobs.update(extra)
     with open(path, 'w') as fh:
         fh.write(''.join(f'{k} = {v!r}\n' for k, v in knobs.items()))
 
@@ -1235,6 +1273,18 @@ def leaves_differ(got, want):
     return [] if same else [f'{want.shape} {want.dtype}']
 
 
+def write_dataset(path, seed, n=16, size=512):
+    """``n`` synthetic ``size``^2 PNGs (``synthetic_neuron``) in ``path``."""
+    import os
+    from neuron_gan_tpu_torch.utils.png import write_png
+    os.makedirs(path)
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        write_png(os.path.join(path, f'neuron_{i:02d}.png'),
+                  synthetic_neuron(rng, size))
+    return path
+
+
 def check_cli(torch, seed):
     """The user's entry points at the flagship geometry on 16 synthetic
     512^2 PNGs (the loader pads them to the 768^2 frame): a train session
@@ -1259,13 +1309,8 @@ def _check_cli(torch, seed, tmp, log):
     from neuron_gan_tpu_torch.checkpoint import load_pytree_npz
     from neuron_gan_tpu_torch.convert import to_jax_state
     from neuron_gan_tpu_torch.data.neuron_dataset import decode_image
-    from neuron_gan_tpu_torch.utils.png import write_png
-    data, root = os.path.join(tmp, 'data'), os.path.join(tmp, 'run')
-    os.makedirs(data)
-    rng = np.random.default_rng(seed)
-    for i in range(16):
-        write_png(os.path.join(data, f'neuron_{i:02d}.png'),
-                  synthetic_neuron(rng, size))
+    data = write_dataset(os.path.join(tmp, 'data'), seed, size=size)
+    root = os.path.join(tmp, 'run')
     cfg_path = os.path.join(tmp, 'cli_config.py')
     write_cli_config(cfg_path, root, data, seed)
     weights = os.path.join(root, 'weights', f'GenDisc_{CLI_ID}.npz')
@@ -1274,8 +1319,8 @@ def _check_cli(torch, seed, tmp, log):
     first = {}
     real_runner = ts.make_epoch_runner
 
-    def recording_runner(cfg, spec, n_epochs):
-        run = real_runner(cfg, spec, n_epochs)
+    def recording_runner(cfg, spec, n_epochs, dp=None):
+        run = real_runner(cfg, spec, n_epochs, dp)
 
         def recorded(state, images, rng_, first_epoch):
             if not first:
@@ -1418,6 +1463,587 @@ def check_gp_remat(torch, seed):
     if failed:
         raise AssertionError(f'{failed}: {json.dumps(result)}')
     return result
+
+
+# ---------------------------------------------------------------------------
+# phases stream, dp and legacy: host streaming, data parallelism, legacy WGAN
+# ---------------------------------------------------------------------------
+
+def _state_of(state):
+    """Each net's parameters and its Adam moments, as lists of tensors."""
+    out = {}
+    for net, module, opt in (('D', state.d, state.d_opt),
+                             ('G', state.g, state.g_opt)):
+        params = list(module.parameters())
+        out[net] = [p.detach().double().clone() for p in params]
+        out[f'{net}_moments'] = [opt.state[p][k].double().clone()
+                                 for p in params
+                                 for k in ('exp_avg', 'exp_avg_sq')]
+    return out
+
+
+def _within_twins(dist, twins):
+    """A distance as small as two identical runs allow: 0 where they agree
+    bit for bit, else within 3x their distance."""
+    return dist == 0 if twins == 0 else dist <= 3 * twins
+
+
+def check_stream(torch, seed):
+    """The shipping path at steady 512^2 for 3 epochs on the flagship
+    stack, resident (twice) and streamed from the host through
+    ``run_epochs_streaming`` with one batch a group (what a 16 MB budget
+    gives: two groups an epoch, so the double buffer turns over).  Held:
+    the streamed run's stats, both nets' parameters and their Adam moments
+    as close to the resident run as the second resident run is (bit for
+    bit where it is, else within 3x its distance); the streamed run's K1-K4
+    launches equal to the resident run's; a planted fault (each epoch's two
+    groups fed in swapped order) outside that bound.  Then one train-CLI
+    session with hbm_budget_mb=16, which must stream."""
+    from neuron_gan_tpu_torch import streaming
+    from neuron_gan_tpu_torch.models import DiscriminatorPG, GeneratorPG
+    from neuron_gan_tpu_torch.train_step import (
+        init_train_state, make_epoch_runner)
+    make, chunk = PATHS['shipping']
+    cfg = make()
+    spec = chunk(cfg.n_phases - 1)
+    n_epochs = 3
+    host = np.random.default_rng(seed + 3).random(
+        (spec.n_images, 768, 768, 1)).astype(np.float32)
+    budget = 16 * 2 ** 20
+    max_group = streaming.group_batches_for_budget(spec, 768, budget)
+    assert max_group == 1 and len(streaming.plan_groups(
+        spec.n_full_batches, max_group)) == 2, max_group
+
+    def one_run(stream):
+        init = torch.Generator().manual_seed(seed)
+        state = init_train_state(GeneratorPG(cfg, init, device='cuda'),
+                                 DiscriminatorPG(cfg, init, device='cuda'))
+        rng = torch.Generator(device='cuda').manual_seed(seed)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        t0 = time.perf_counter()
+        if stream:
+            stats = streaming.run_epochs_streaming(
+                cfg, spec, state, host, rng, 1, n_epochs, max_group)
+        else:
+            images = torch.from_numpy(host).to('cuda')
+            stats = make_epoch_runner(cfg, spec, n_epochs)(state, images,
+                                                           rng, 1)
+        stats = stats.cpu().double()
+        secs = time.perf_counter() - t0
+        assert torch.isfinite(stats).all(), stats
+        return {'stats': stats, **_state_of(state), 'launches': read_counters(),
+                'seconds': round(secs, 3),
+                'peak_mem_gib': torch.cuda.max_memory_allocated() / 2 ** 30}
+
+    def dist(run, ref):
+        return {'stats': rel_l2([run['stats']], [ref['stats']]),
+                **{k: rel_l2(run[k], ref[k])
+                   for k in ('D', 'G', 'D_moments', 'G_moments')}}
+
+    plan = streaming.plan_groups
+    swapped = mock.patch.object(streaming, 'plan_groups',
+                                lambda *a: plan(*a)[::-1])
+    result = {'phase': 'stream', 'nvidia_smi': nvidia_smi_line(),
+              'path': 'shipping', 'resolution': 512,
+              'epochs': n_epochs, 'stack': list(host.shape),
+              'budget_mib': budget / 2 ** 20, 'group_batches': max_group}
+    runs = {'resident': one_run(False), 'resident_again': one_run(False),
+            'streamed': one_run(True)}
+    with swapped:
+        runs['fault_swapped_groups'] = one_run(True)
+    ref = runs['resident']
+    dists = {k: dist(run, ref) for k, run in runs.items() if run is not ref}
+    twins = dists['resident_again']
+
+    def holds(k):
+        return all(_within_twins(dists[k][q], twins[q]) for q in twins)
+
+    result.update({
+        'lr': spec.lr0, 'rel_l2_to_resident': dists,
+        'runs': {k: {q: run[q] for q in ('seconds', 'peak_mem_gib', 'launches')}
+                 for k, run in runs.items()}})
+    failed = []
+    if not holds('streamed'):
+        failed.append("streamed run outside the resident runs' distance")
+    if holds('fault_swapped_groups'):
+        failed.append('planted fault (swapped groups) inside the bound')
+    if runs['streamed']['launches'] != ref['launches']:
+        failed.append('launch counts differ from the resident run')
+    for key in ('k1', 'k2', 'k3', 'k4'):
+        if not ref['launches'][key]:
+            failed.append(f'{key} never launched')
+    if failed:
+        raise AssertionError(f'{failed}: {json.dumps(result)}')
+
+    import os
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp, \
+            open(os.path.join(tmp, 'cli.log'), 'w') as log:
+        data = write_dataset(os.path.join(tmp, 'data'), seed)
+        cfg_path = os.path.join(tmp, 'stream_config.py')
+        write_cli_config(cfg_path, os.path.join(tmp, 'run'), data, seed,
+                         ID='smks', hbm_budget_mb=16, N_epochs_session=3)
+        text, secs = run_cli('neuron_gan_tpu_torch.train',
+                             ['--configs', cfg_path], log)
+        lines = [ln for ln in text.splitlines() if 'streaming from host' in ln]
+        if not lines:
+            log.flush()
+            raise AssertionError(f'the train CLI did not stream:\n{text[-4000:]}')
+    result['cli'] = {'seconds': round(secs, 3), 'message': lines[0]}
+    return result
+
+
+# the summed stats' relative-L2 bound of the dp phases: 3x the largest sound
+# reading on the H100 (2 gloo ranks 4.0e-6, 4 NCCL ranks 1.2e-6), below
+# what ranks that take another rank's draws read (5.2e-5, 2.4e-5) and far
+# below stats summed without the b_r weight (1 - ranks / 8)
+DP_STATS_BOUND = 1.2e-5
+
+
+def _dp_rank(rank, world_size, init_method, seed, arms, backend, out_dir):
+    """One rank of a data-parallel group: one shipping 512^2 step (lr 0) of
+    each arm on this rank's rows of the global batch of 8.  Over gloo every
+    rank shares cuda:0 (NCCL takes one rank a card); over NCCL rank r binds
+    cuda:r.  Saves each arm's reduced gradients, this rank's and the summed
+    stats, and its launches to ``out_dir``."""
+    import os
+    import torch
+    from neuron_gan_tpu_torch.models import DiscriminatorPG, GeneratorPG
+    from neuron_gan_tpu_torch.parallel import DataParallel, take_rows
+    from neuron_gan_tpu_torch.train_step import (
+        draw_batch, init_train_state, make_batch_step)
+    if backend == 'gloo':
+        torch.distributed.init_process_group(
+            'gloo', init_method=init_method, world_size=world_size, rank=rank)
+        dp = DataParallel(rank, world_size, 'cuda:0')
+    else:
+        dp = DataParallel.init(rank, world_size, init_method, f'cuda:{rank}')
+    device = dp.device
+    make, chunk = PATHS['shipping']
+    cfg = make()
+    spec = chunk(cfg.n_phases - 1)
+    raw = torch.from_numpy(np.random.default_rng(seed + 2).random(
+        (8, 768, 768, 1)).astype(np.float32)).to(device)
+    draws = draw_batch(torch.Generator(device=device).manual_seed(seed), cfg,
+                       spec, 8, 768)
+    out = {}
+    try:
+        for arm in arms:
+            lo, hi = dp.rows(8)
+            rows = (lo, hi)
+            patches = []
+            if arm == 'fault_unweighted':
+                reduce = DataParallel.reduce_grads
+                patches.append(mock.patch.object(
+                    DataParallel, 'reduce_grads',
+                    lambda self, params, weight: reduce(self, params, 1.0)))
+            if arm == 'fault_other_rows':
+                # this rank's images with the next rank's draws
+                rows = DataParallel((rank + 1) % world_size, world_size,
+                                    device).rows(8)
+            init = torch.Generator().manual_seed(seed)
+            state = init_train_state(GeneratorPG(cfg, init, device=device),
+                                     DiscriminatorPG(cfg, init, device=device))
+            step = make_batch_step(cfg, spec, dp)
+            reset_counters()
+            for p in patches:
+                p.start()
+            try:
+                stats = step(state, raw[lo:hi], take_rows(draws, *rows),
+                             None, 0.0, 0.0, 8)
+            finally:
+                for p in patches:
+                    p.stop()
+            local = stats.cpu()
+            dp.all_reduce_(stats)
+            out[arm] = {'D': [p.grad.cpu() for p in state.d.parameters()],
+                        'G': [p.grad.cpu() for p in state.g.parameters()],
+                        'stats': stats.cpu(), 'stats_local': local,
+                        'launches': read_counters(), 'rows': [lo, hi]}
+        dp.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.save(out, os.path.join(out_dir, f'rank{rank}.pt'))
+
+
+def dp_step_parity(torch, seed, world_size, backend):
+    """``world_size`` ranks over ``backend`` (``_dp_rank``), one shipping
+    512^2 step at lr 0 on their rows of the flagship batch of 8, against the
+    1-process step on cuda:0 with the same parameters and draws: the
+    reduced gradients of D and G by relative L2 within the shipping parity
+    bound, the summed stats within DP_STATS_BOUND, every rank holding the
+    same gradients and stats; three planted faults outside (gradients
+    summed without the b_r / B weight; each rank taking the next rank's
+    rows of the draws; stats summed without the b_r weight, made from the
+    sound arm's per-rank stats); each rank launching K1-K4.  Returns the
+    readings and the failed checks."""
+    import os
+    import tempfile
+    from neuron_gan_tpu_torch.models import DiscriminatorPG, GeneratorPG
+    from neuron_gan_tpu_torch.parallel import spawn
+    from neuron_gan_tpu_torch.train_step import (
+        draw_batch, init_train_state, make_batch_step)
+    make, chunk = PATHS['shipping']
+    cfg = make()
+    spec = chunk(cfg.n_phases - 1)
+    raw = torch.from_numpy(np.random.default_rng(seed + 2).random(
+        (8, 768, 768, 1)).astype(np.float32)).to('cuda')
+    draws = draw_batch(torch.Generator(device='cuda').manual_seed(seed), cfg,
+                       spec, 8, 768)
+
+    def one_process():
+        init = torch.Generator().manual_seed(seed)
+        state = init_train_state(GeneratorPG(cfg, init, device='cuda'),
+                                 DiscriminatorPG(cfg, init, device='cuda'))
+        stats = make_batch_step(cfg, spec)(state, raw, draws, None, 0.0, 0.0)
+        return {'D': [p.grad.cpu() for p in state.d.parameters()],
+                'G': [p.grad.cpu() for p in state.g.parameters()],
+                'stats': stats.cpu()}
+
+    one, one_again = one_process(), one_process()
+    arms = ('dp', 'fault_unweighted', 'fault_other_rows')
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn(_dp_rank, world_size, seed, arms, backend, tmp)
+        ranks = [torch.load(os.path.join(tmp, f'rank{r}.pt'),
+                            weights_only=False) for r in range(world_size)]
+    secs = time.perf_counter() - t0
+
+    def dist(run):
+        return {'D': rel_l2(run['D'], one['D']),
+                'G': rel_l2(run['G'], one['G']),
+                'stats': rel_l2([run['stats']], [one['stats']])}
+
+    bound = dict(REL_L2_BOUND['shipping'], stats=DP_STATS_BOUND)
+    dists = {'one~one': dist(one_again)}
+    for arm in arms:
+        r0 = ranks[0][arm]
+        # every rank holds the same reduced gradients and stats
+        same = all(torch.equal(a, b) for rk in ranks[1:] for net in ('D', 'G')
+                   for a, b in zip(r0[net], rk[arm][net])) and \
+            all(torch.equal(r0['stats'], rk[arm]['stats']) for rk in ranks)
+        dists[arm] = dict(dist(r0), ranks_equal=same)
+    # each rank's stats as a mean over its rows, summed
+    unweighted = sum(rk['dp']['stats_local'] / (rk['dp']['rows'][1]
+                                                 - rk['dp']['rows'][0])
+                     for rk in ranks)
+    dists['fault_stats_unweighted'] = {
+        'stats': rel_l2([unweighted], [one['stats']])}
+
+    def within(d):
+        return all(d[k] <= bound[k] for k in bound if k in d)
+
+    result = {'ranks': world_size, 'backend': backend, 'batch': 8,
+              'devices': ['cuda:0' if backend == 'gloo' else f'cuda:{r}'
+                          for r in range(world_size)],
+              'rows': [rk['dp']['rows'] for rk in ranks],
+              'rel_l2_bound': bound, 'rel_l2_to_one_process': dists,
+              'spawned_seconds': round(secs, 3),
+              'launches': {f'rank{r}': rk['dp']['launches']
+                           for r, rk in enumerate(ranks)}}
+    failed = []
+    if not within(dists['dp']) or not dists['dp']['ranks_equal']:
+        failed.append(f'{world_size} ranks outside the bound of the '
+                      '1-process step')
+    for arm in (*arms[1:], 'fault_stats_unweighted'):
+        if within(dists[arm]):
+            failed.append(f'planted fault {arm} inside the bound')
+    for r, rk in enumerate(ranks):
+        for key in ('k1', 'k2', 'k3', 'k4'):
+            if not rk['dp']['launches'][key]:
+                failed.append(f'rank {r} never launched {key}')
+    return result, failed
+
+
+def check_dp(torch, seed):
+    """Two ranks on the one card (gloo on CUDA tensors: NCCL takes one rank
+    a card), 4 rows each of the flagship batch (``dp_step_parity``).  Then
+    the train CLI with mesh_shape={'data': 1}: its NCCL path."""
+    step, failed = dp_step_parity(torch, seed, 2, 'gloo')
+    result = {'phase': 'dp', 'nvidia_smi': nvidia_smi_line(),
+              'path': 'shipping', 'resolution': 512, **step}
+    if failed:
+        raise AssertionError(f'{failed}: {json.dumps(result)}')
+
+    # the CLI's own data-parallel path: one rank, NCCL, a process it spawns
+    import os
+    import tempfile
+    from neuron_gan_tpu_torch.checkpoint import load_pytree_npz
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_dataset(os.path.join(tmp, 'data'), seed)
+        cfg_path = os.path.join(tmp, 'dp_config.py')
+        root = os.path.join(tmp, 'run')
+        write_cli_config(cfg_path, root, data, seed, ID='smkd',
+                         mesh_shape={'data': 1}, N_epochs_session=4)
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, '-m', 'neuron_gan_tpu_torch.train', '--configs',
+             cfg_path], capture_output=True, text=True, timeout=600)
+        cli_secs = time.perf_counter() - t0
+        said = [ln for ln in run.stdout.splitlines()
+                if ln.startswith('data parallel:')]
+        if run.returncode or said != ['data parallel: 1 ranks, nccl on cuda:0']:
+            raise AssertionError(f'train CLI under mesh_shape: rc '
+                                 f'{run.returncode}, {said}\n'
+                                 f'{run.stdout[-3000:]}\n{run.stderr[-3000:]}')
+        payload, meta = load_pytree_npz(os.path.join(root, 'weights',
+                                                     'GenDisc_smkd.npz'))
+    assert meta['epoch'] == 4, meta
+    for name, series in payload['series'].items():
+        assert np.isfinite(series).all(), name
+    result['cli'] = {'seconds': round(cli_secs, 3), 'said': said[0],
+                     'checkpoint_epoch': meta['epoch']}
+    return result
+
+
+def recording_chunks(stats):
+    """``TrainSession._run_chunk`` patched to append each chunk's stats."""
+    from neuron_gan_tpu_torch.train import TrainSession
+    run_chunk = TrainSession._run_chunk
+
+    def recorded(self, *args):
+        stats.append(run_chunk(self, *args))
+        return stats[-1]
+    return mock.patch.object(TrainSession, '_run_chunk', recorded)
+
+
+def _cli_rank(rank, world_size, init_method, argv, out_dir):
+    """A rank of the train CLI's data-parallel session (``_train_rank``, as
+    the CLI spawns it) that keeps what ``check_dp_nccl`` compares: its final
+    state (the JAX layout), every epoch's stats and its launches.  Its
+    standard output goes to ``out_dir``."""
+    import contextlib
+    import os
+    import torch
+    from neuron_gan_tpu_torch import train as ttrain
+    from neuron_gan_tpu_torch.convert import to_jax_state
+    stats = []
+    reset_counters()
+    with open(os.path.join(out_dir, f'rank{rank}.log'), 'w') as log, \
+            contextlib.redirect_stdout(log), recording_chunks(stats):
+        session = ttrain._train_rank(rank, world_size, init_method, argv)
+    torch.save((to_jax_state(session.state), np.concatenate(stats),
+                read_counters()), os.path.join(out_dir, f'rank{rank}.pt'))
+
+
+def state_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in state_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in state_leaves(v)]
+    return [np.asarray(tree)]
+
+
+def check_dp_nccl(torch, seed, world_size):
+    """``world_size`` ranks over NCCL, rank r on cuda:r.  First the batch
+    step of ``dp_step_parity``.  Then the train CLI's data-parallel session
+    under mesh_shape={'data': world_size} (``train.main``, its ranks
+    spawned as the CLI spawns them) on 16 synthetic 512^2 PNGs through
+    every phase to epoch 16, with the similarity loss on (its images and z
+    gathered over NCCL).  Held: every rank's final state and stats equal
+    bit for bit, finite stats, rank 0's checkpoint at epoch 16 with finite
+    series, each rank launching K1-K4, and D's and G's parameters within
+    the shipping parity bound of a 1-process session of the same config on
+    cuda:0, the distance between two such sessions printed beside it."""
+    import contextlib
+    import os
+    import tempfile
+    from neuron_gan_tpu_torch import train as ttrain
+    from neuron_gan_tpu_torch.checkpoint import load_pytree_npz
+    from neuron_gan_tpu_torch.convert import to_jax_state
+    from neuron_gan_tpu_torch.parallel import spawn
+    if torch.cuda.device_count() < world_size:
+        raise AssertionError(f'{world_size} ranks need {world_size} cards, '
+                             f'have {torch.cuda.device_count()}')
+    step, failed = dp_step_parity(torch, seed, world_size, 'nccl')
+    result = {'phase': 'dp_nccl', 'nvidia_smi': nvidia_smi_lines(),
+              'path': 'shipping', 'resolution': 512, 'step': step}
+    if failed:
+        raise AssertionError(f'{failed}: {json.dumps(result)}')
+
+    knobs = dict(sim_loss_lambda=0.1, N_epochs_session=None)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = write_dataset(os.path.join(tmp, 'data'), seed)
+        runs = {}
+        for name, run_id in (('one', 'smko'), ('one_again', 'smkp')):
+            cfg_path = os.path.join(tmp, f'{name}.py')
+            write_cli_config(cfg_path, os.path.join(tmp, name), data, seed,
+                             ID=run_id, **knobs)
+            stats = []
+            t0 = time.perf_counter()
+            with open(os.path.join(tmp, f'{name}.log'), 'w') as log, \
+                    contextlib.redirect_stdout(log), recording_chunks(stats):
+                session = ttrain.main(['--configs', cfg_path])
+            runs[name] = {'state': to_jax_state(session.state),
+                          'stats': np.concatenate(stats),
+                          'seconds': time.perf_counter() - t0}
+        root = os.path.join(tmp, 'dp')
+        cfg_path = os.path.join(tmp, 'dp.py')
+        write_cli_config(cfg_path, root, data, seed, ID='smkn',
+                         mesh_shape={'data': world_size}, **knobs)
+        spawned = []
+
+        def spawn_recording(target, n, argv):
+            assert target is ttrain._train_rank and n == world_size
+            spawned.append(n)
+            spawn(_cli_rank, n, argv, tmp)
+
+        t0 = time.perf_counter()
+        with mock.patch.object(ttrain, 'spawn', spawn_recording):
+            ttrain.main(['--configs', cfg_path])
+        secs = time.perf_counter() - t0
+        assert spawned == [world_size], spawned
+        ranks = [torch.load(os.path.join(tmp, f'rank{r}.pt'),
+                            weights_only=False) for r in range(world_size)]
+        with open(os.path.join(tmp, 'rank0.log')) as fh:
+            said = [ln for ln in fh.read().splitlines()
+                    if ln.startswith('data parallel:')]
+        payload, meta = load_pytree_npz(os.path.join(root, 'weights',
+                                                     'GenDisc_smkn.npz'))
+
+    def params(state, net):
+        return [torch.from_numpy(np.array(x)) for x in
+                state_leaves(state[f'{net.lower()}_params'])]
+
+    def dist(state):
+        return {net: rel_l2(params(state, net),
+                            params(runs['one']['state'], net))
+                for net in ('D', 'G')}
+
+    state0, stats0, _ = ranks[0]
+    bound = REL_L2_BOUND['shipping']
+    cli = {'seconds': round(secs, 3), 'said': said,
+           'checkpoint_epoch': int(meta['epoch']),
+           'one_process_seconds': [round(r['seconds'], 3)
+                                   for r in runs.values()],
+           'rel_l2_bound': bound,
+           'params_rel_l2_to_one_process': {
+               'one_again': dist(runs['one_again']['state']),
+               'dp': dist(state0)},
+           'stats_rel_l2_to_one_process': {
+               name: rel_l2([torch.from_numpy(s)],
+                            [torch.from_numpy(runs['one']['stats'])])
+               for name, s in (('one_again', runs['one_again']['stats']),
+                               ('dp', stats0))},
+           'ranks_equal': all(
+               all(np.array_equal(x, y) for x, y in zip(
+                   state_leaves(state0), state_leaves(rk[0])))
+               and np.array_equal(stats0, rk[1]) for rk in ranks[1:]),
+           'launches': {f'rank{r}': rk[2] for r, rk in enumerate(ranks)}}
+    result['cli'] = cli
+    d = cli['params_rel_l2_to_one_process']['dp']
+    if said != [f'data parallel: {world_size} ranks, nccl on cuda:0']:
+        failed.append(f'rank 0 said {said}')
+    if meta['epoch'] != 16 or not all(
+            np.isfinite(s).all() for s in payload['series'].values()):
+        failed.append(f'checkpoint at epoch {meta["epoch"]}, or a series '
+                      'not finite')
+    if not np.isfinite(stats0).all() or not cli['ranks_equal']:
+        failed.append('stats not finite, or the ranks differ')
+    if d['D'] > bound['D'] or d['G'] > bound['G']:
+        failed.append("the ranks' parameters outside the bound of the "
+                      '1-process session')
+    for r, rk in enumerate(ranks):
+        for key in ('k1', 'k2', 'k3', 'k4'):
+            if not rk[2][key]:
+                failed.append(f'rank {r} never launched {key}')
+    if failed:
+        raise AssertionError(f'{failed}: {json.dumps(result)}')
+    return result
+
+
+LEGACY_KNOBS = dict(wgan=True, pggan=False, n_critic=1, checkpointing_period=2,
+                    N_epochs_session=None)
+
+
+def check_legacy(torch, seed):
+    """The train CLI under wgan=True at the config_ex geometry (512^2, G
+    (128, 64, 32, 32, 16, 16), D (16, 16, 32, 32, 64, 128), latent 64,
+    batch 8) on 16 synthetic PNGs: epochs 1-4, then resumed to 6.  Held:
+    finite stats, every critic parameter within +-0.01, family 'wgan' in
+    the checkpoint's meta, the resumed session starting from the saved
+    state bit for bit.  The legacy nets are cuDNN/ATen layers: no ported
+    kernel launches, and none must."""
+    import os
+    import tempfile
+    import neuron_gan_tpu_torch.legacy_train as lt
+    from neuron_gan_tpu_torch.checkpoint import load_pytree_npz
+    from neuron_gan_tpu_torch.convert import to_jax_legacy_state
+    first = {}
+    real_runner = lt.make_wgan_epoch_runner
+
+    def recording_runner(**kw):
+        run = real_runner(**kw)
+
+        def recorded(state, images, rng):
+            if not first:
+                first['state'] = to_jax_legacy_state(state)
+            return run(state, images, rng)
+        return recorded
+
+    with tempfile.TemporaryDirectory() as tmp, \
+            open(os.path.join(tmp, 'cli.log'), 'w') as log:
+        data = write_dataset(os.path.join(tmp, 'data'), seed)
+        root = os.path.join(tmp, 'run')
+        sessions = []
+        reset_counters()
+        for n_epochs, flags in ((4, []), (6, ['--resume'])):
+            cfg_path = os.path.join(tmp, f'legacy{n_epochs}.py')
+            write_cli_config(cfg_path, root, data, seed, ID='smkl',
+                             N_epochs=n_epochs, **LEGACY_KNOBS)
+            if flags:
+                saved, saved_meta = load_pytree_npz(
+                    os.path.join(root, 'weights', 'GenDisc_smkl.npz'))
+            with mock.patch.object(lt, 'make_wgan_epoch_runner',
+                                   recording_runner if flags else real_runner):
+                text, secs = run_cli('neuron_gan_tpu_torch.train',
+                                     ['--configs', cfg_path] + flags, log)
+            sessions.append({'epochs': n_epochs, 'seconds': round(secs, 3),
+                             'lines': [ln for ln in text.splitlines()
+                                       if ln.startswith('Epoch: ')]})
+        payload, meta = load_pytree_npz(
+            os.path.join(root, 'weights', 'GenDisc_smkl.npz'))
+        grids = sorted(f for f in os.listdir(os.path.join(root, 'images'))
+                       if f.startswith('Samples_smkl'))
+    launches = read_counters()
+    differ = leaves_differ(first['state'], saved['state'])
+    d_max = max(float(np.abs(np.asarray(x)).max())
+                for x in _tree_leaves(payload['state']['d_params']))
+    result = {'phase': 'legacy', 'nvidia_smi': nvidia_smi_line(),
+              'family': meta.get('family'),
+              'geometry': {'image_size': 512, 'G': [128, 64, 32, 32, 16, 16],
+                           'D': [16, 16, 32, 32, 64, 128], 'latent': 64,
+                           'batch': 8},
+              'sessions': sessions, 'checkpoint_epoch': meta['epoch'],
+              'resumed_from_epoch': saved_meta['epoch'],
+              'critic_abs_max': d_max, 'grids': grids,
+              'kernels': 'none: the legacy nets are cuDNN/ATen layers',
+              'launches': launches}
+    failed = []
+    if meta.get('family') != 'wgan' or meta['epoch'] != 6:
+        failed.append('checkpoint meta')
+    if not all(np.isfinite(v).all() and len(v) == 6
+               for v in payload['series'].values()):
+        failed.append('stats not finite')
+    if d_max > 0.01:
+        failed.append('a critic parameter outside +-0.01')
+    if differ:
+        failed.append(f'resumed state differs from the saved one: {differ}')
+    if any(launches.values()):
+        failed.append('a ported kernel launched')
+    if failed:
+        raise AssertionError(f'{failed}: {json.dumps(result)}')
+    return result
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _tree_leaves(v)]
+    return [tree]
 
 
 # ---------------------------------------------------------------------------
@@ -1628,6 +2254,8 @@ def parity(torch, seed, cfg_k, spec, raw, name='unpacked'):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--seed', type=int, default=0)
+    ap.add_argument('--ranks', type=int, default=None,
+                    help='run only the dp_nccl phase, over this many cards')
     args = ap.parse_args()
 
     import torch
@@ -1657,6 +2285,15 @@ def main():
                                     or 'entry function' in ln]}
                       for n, (s, log) in built.items()}})
 
+    if args.ranks is not None:
+        emit(check_dp_nccl(torch, args.seed, args.ranks))
+        for line in nvidia_smi_lines():
+            print(line, flush=True)
+        emit({'ok': True, 'device': {'platform': 'gpu',
+                                     'kind': torch.cuda.get_device_name(0),
+                                     'count': torch.cuda.device_count()}})
+        return 0
+
     # the main paths first: their steps/s windows run in a process in which
     # the profiler (device_ms) has not run yet
     paths = {name: make() for name, (make, _) in PATHS.items()}
@@ -1667,6 +2304,12 @@ def main():
     # the user's entry points, still before any profiler session
     emit(check_cli(torch, args.seed))
     emit(check_gp_remat(torch, args.seed))
+    # the other training paths: host streaming, two ranks, legacy WGAN
+    stream = check_stream(torch, args.seed)
+    emit(stream)
+    dp = check_dp(torch, args.seed)
+    emit(dp)
+    emit(check_legacy(torch, args.seed))
 
     epi = check_epilogue_kernels(torch, lpn, args.seed)
     emit({'phase': 'kernels', 'pair': 'lrelu_pixel_norm', **epi})
@@ -1728,9 +2371,15 @@ def main():
                 'bound_ms': sum(e['n'] * site_bound_ms(
                     key, dtype, tuple(e['x']), e['case']) for e in sites)}
 
+    # the streamed run and each rank (shipping path, bfloat16)
+    other_paths = {'stream': stream['runs']['streamed']['launches'],
+                 **{f'dp_{r}': n for r, n in dp['launches'].items()}}
+
     def row(name, src, replaces, key, dtype, err, ms, plain_ms, bound_ms,
             bound_by, library_ms, **extra):
         counts = by_path[key, dtype]
+        extra['launches_other_paths'] = {
+            path: total(c[key], dtype) for path, c in other_paths.items()}
         path = 'packed' if dtype == 'float32' else 'mixed'
         steps = [per_step(path, key, dtype)]
         if key in ('k1', 'k2') and dtype == 'float32':

@@ -15,7 +15,6 @@ time, so two runs in one process do not see each other's settings.
 
 import copy
 import os
-import sys
 import uuid
 from types import FunctionType, ModuleType
 
@@ -30,7 +29,7 @@ plots_dir = os.path.join(root_dir, 'plots')
 logs_dir = os.path.join(root_dir, 'logs')
 
 # WGAN config (reference: configs/config.py:18-23)
-wgan = False          # The fixed-resolution Wasserstein GAN family (not ported: ROADMAP A10)
+wgan = False          # Use the fixed-resolution Wasserstein GAN model family
 n_critic = 1          # Critic steps per generator step
 adapt_critic = False  # Adapt the number of critic steps from the loss series
 weights_init = ''     # Filename of initial G/D weights (.npz or reference .pth)
@@ -85,8 +84,9 @@ N_gen_features = [128, 64, 32, 32, 16, 16]
 N_dis_features = [16, 16, 32, 32, 64, 128]
 
 # Execution on the GPU (the JAX package's TPU knobs, mapped)
-mesh_shape = None            # multi-device training is not ported (ROADMAP
-                             # A9): anything but None is refused
+mesh_shape = None            # {'data': N}: data-parallel training over N
+                             # processes, one per card (parallel/data.py);
+                             # the 'model' axis is not ported (ROADMAP A9.3)
 compute_dtype = 'mixed'      # 'float32', 'bfloat16', or 'mixed' (bfloat16
                              # activations, float32 stem/norm statistics/
                              # images/critic head), as in the JAX package
@@ -118,9 +118,10 @@ gp_reuse_fakes = True        # Reuse the critic-loss fake batch for the
                              # gradient-penalty interpolates (the original
                              # WGAN-GP formulation, as the JAX package ships)
 hbm_budget_mb = 4096         # Device-memory budget for the raw image stack.
-                             # A stack above it would stream from the host,
-                             # which is not ported (ROADMAP A9): it is
-                             # refused.  0 disables the check
+                             # A stack above it stays on the host and
+                             # streams to the device per epoch, two groups
+                             # of batches in flight (streaming.py).  0
+                             # keeps every stack on the device
 ema_beta = 0.0               # EMA decay for a shadow generator (0 disables)
 donate_state = True          # Accepted for parity; no effect: the port
                              # updates the models and optimizers in place
@@ -194,9 +195,10 @@ def define_ID_dependent_configs():
 
 def print_configs():
     print('Configurations:')
-    module = sys.modules[__name__]
+    # this module's own namespace, also after a caller dropped the module
+    # from sys.modules for a fresh import
     for name in configs_name:
-        print(f'{name}:', getattr(module, name))
+        print(f'{name}:', globals()[name])
 
 
 def validate_configs(interactive=True):
@@ -272,12 +274,8 @@ def validate_configs(interactive=True):
 
     # what the port does not run, refused by name
     precision_of(matmul_precision)
-    if mesh_shape is not None:
-        raise ValueError(f'mesh_shape={mesh_shape!r}: multi-device training '
-                         'is not ported (ROADMAP A9); use mesh_shape=None')
-    if wgan:
-        raise ValueError('wgan=True: the legacy DCGAN/WGAN families are not '
-                         'ported (ROADMAP A10)')
+    from neuron_gan_tpu_torch.parallel.data import data_ranks
+    data_ranks(mesh_shape)
 
 
 define_ID_dependent_configs()

@@ -13,6 +13,14 @@ torch.optim's Adam state as optax's ``ScaleByAdamState(count, mu, nu)``
 (``step`` <-> ``count``, ``exp_avg`` <-> ``mu``, ``exp_avg_sq`` <-> ``nu``,
 the moments in the weights' layout) and RMSprop's as the JAX package's
 ``{'nu': ...}`` (``square_avg``).
+
+The legacy WGAN/DCGAN nets (models/legacy.py) cross as the JAX package's
+``(params, bn_states)`` pair (``legacy_to_jax`` / ``load_legacy``): BN
+scale/bias under ``bn`` in the params, running mean/var in ``bn_states``
+under ``bn0``, ``stem`` or ``block{i}``; transposed-conv weights as the
+JAX ``conv_transpose2d`` takes them, (kh, kw, in, out).  Their train state
+(``to_jax_legacy_state`` / ``load_jax_legacy_state``) is the JAX legacy
+trainer's ``{g_params, d_params, g_bn, d_bn, g_opt, d_opt}``.
 """
 
 from typing import NamedTuple
@@ -115,13 +123,21 @@ def _scalar_dtype():
 
 
 def _opt_tree(module, opt):
-    named = list(module.named_parameters())
-    states = [opt.state.get(p, {}) for _, p in named]
+    names = [name for name, _ in module.named_parameters()]
+    return _opt_state(opt, [p for _, p in module.named_parameters()],
+                      lambda arrays: _tree_of(zip(names, arrays)))
+
+
+def _opt_state(opt, params, tree_of):
+    """``opt``'s state of ``params`` as the JAX package's optimizer state;
+    ``tree_of`` maps arrays in the parameters' order to a JAX-layout
+    tree."""
+    states = [opt.state.get(p, {}) for p in params]
 
     def moment(key):
-        return _tree_of((name, _numpy(s[key]) if key in s
-                         else np.zeros(p.shape, np.float32))
-                        for (name, p), s in zip(named, states))
+        return tree_of([_numpy(s[key]) if key in s
+                        else np.zeros(p.shape, np.float32)
+                        for p, s in zip(params, states)])
 
     if isinstance(opt, torch.optim.RMSprop):
         return {'nu': moment('square_avg')}
@@ -133,18 +149,27 @@ def _opt_tree(module, opt):
 
 
 def _load_opt(module, opt, tree):
-    for name, p in module.named_parameters():
+    names = [name for name, _ in module.named_parameters()]
+    _load_opt_state(opt, [p for _, p in module.named_parameters()], tree,
+                    lambda t, i: _leaf(t, names[i]))
+
+
+def _load_opt_state(opt, params, tree, leaf):
+    """Restore ``opt``'s state of ``params`` from the JAX package's
+    optimizer state; ``leaf(tree, i)`` is parameter i's tensor in a
+    moment tree."""
+    for i, p in enumerate(params):
         if isinstance(opt, torch.optim.RMSprop):
             # torch's RMSprop counts steps but no update reads the count
             opt.state[p] = {'step': torch.zeros((), dtype=_scalar_dtype()),
-                            'square_avg': _leaf(tree['nu'], name).to(p)}
+                            'square_avg': leaf(tree['nu'], i).to(p)}
         else:
             count, mu, nu = tree
             opt.state[p] = {
                 'step': torch.tensor(float(np.asarray(count)),
                                      dtype=_scalar_dtype()),
-                'exp_avg': _leaf(mu, name).to(p),
-                'exp_avg_sq': _leaf(nu, name).to(p)}
+                'exp_avg': leaf(mu, i).to(p),
+                'exp_avg_sq': leaf(nu, i).to(p)}
 
 
 def to_jax_state(state):
@@ -172,3 +197,145 @@ def load_jax_state(state, tree):
     if state.g_ema is not None:
         load_jax_tree(state.g_ema, merged['g_ema'])
     return report
+
+
+# --------------------------------------------------------------------------
+# Legacy WGAN/DCGAN nets
+# --------------------------------------------------------------------------
+
+# weight permutations torch -> JAX (each its own inverse but the Conv2d one)
+_CONV_TO_HWIO = (2, 3, 1, 0)       # Conv2d (out, in, kh, kw)
+_HWIO_TO_CONV = (3, 2, 0, 1)
+_CONVT_TO_JAX = (2, 3, 0, 1)       # ConvTranspose2d (in, out, kh, kw)
+
+
+def _legacy_entries(module):
+    """``(params, buffers)`` of a legacy net: (path in the JAX tree, tensor,
+    to-JAX permutation or 'T' or None) for every parameter, (path in the
+    bn_states tree, tensor) for every BN running statistic."""
+    params, buffers = [], []
+
+    def conv(m, path):
+        perm = (_CONVT_TO_JAX if isinstance(m, torch.nn.ConvTranspose2d)
+                else _CONV_TO_HWIO)
+        params.append((path + ('w',), m.weight, perm))
+        if m.bias is not None:
+            params.append((path + ('b',), m.bias, None))
+
+    def bn(m, path, state_path):
+        params.extend([(path + ('scale',), m.weight, None),
+                       (path + ('bias',), m.bias, None)])
+        buffers.extend([(state_path + ('mean',), m.running_mean),
+                        (state_path + ('var',), m.running_var)])
+
+    for name, child in module.named_children():
+        if name == 'blocks':
+            for i, block in enumerate(child):
+                conv(block.conv, ('blocks', i))
+                bn(block.bn, ('blocks', i, 'bn'), (f'block{i}',))
+        elif isinstance(child, torch.nn.Linear):
+            params.extend([((name, 'w'), child.weight, 'T'),
+                           ((name, 'b'), child.bias, None)])
+        elif isinstance(child, torch.nn.BatchNorm2d):
+            bn(child, (name,), (name,))
+        elif isinstance(child, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+            conv(child, (name,))
+        else:   # the DCGAN generator's stem: a conv and its BN
+            conv(child.conv, (name,))
+            bn(child.bn, (name, 'bn'), (name,))
+    return params, buffers
+
+
+def _legacy_to_layout(a, perm):
+    if perm == 'T':
+        return np.ascontiguousarray(a.T)
+    return a if perm is None else np.ascontiguousarray(a.transpose(perm))
+
+
+def _legacy_from_layout(a, perm):
+    if perm == _CONV_TO_HWIO:
+        perm = _HWIO_TO_CONV
+    return _legacy_to_layout(np.asarray(a), perm)
+
+
+def _set_path(tree, path, value):
+    node = tree
+    for k, nxt in zip(path[:-1], path[1:]):
+        default = [] if isinstance(nxt, int) else {}
+        if isinstance(node, list):
+            while len(node) <= k:
+                node.append(None)
+            if node[k] is None:
+                node[k] = default
+            node = node[k]
+        else:
+            node = node.setdefault(k, default)
+    node[path[-1]] = value
+
+
+def _get_path(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _legacy_tree(entries, arrays):
+    tree = {}
+    for (path, _, perm), a in zip(entries, arrays):
+        _set_path(tree, path, _legacy_to_layout(a, perm))
+    return tree
+
+
+def legacy_to_jax(module):
+    """A legacy net as the JAX package's ``(params, bn_states)`` pytrees of
+    numpy arrays."""
+    params, buffers = _legacy_entries(module)
+    bn_states = {}
+    for path, t in buffers:
+        _set_path(bn_states, path, _numpy(t))
+    return _legacy_tree(params, [_numpy(t) for _, t, _ in params]), bn_states
+
+
+def load_legacy(module, params, bn_states):
+    """Copy the JAX package's ``(params, bn_states)`` into a legacy net, in
+    place.  Every leaf must be present with the matching shape."""
+    entries, buffers = _legacy_entries(module)
+    with torch.no_grad():
+        for path, t, perm in entries:
+            value = torch.from_numpy(np.array(_legacy_from_layout(
+                _get_path(params, path), perm)))
+            if value.shape != t.shape:
+                raise ValueError(f'{path}: shape {tuple(value.shape)} does '
+                                 f'not match {tuple(t.shape)}')
+            t.copy_(value)
+        for path, t in buffers:
+            t.copy_(torch.from_numpy(np.array(_get_path(bn_states, path))))
+    return module
+
+
+def to_jax_legacy_state(state):
+    """A legacy train state (legacy_train.LegacyState) as the JAX legacy
+    trainer's state pytree."""
+    tree = {}
+    for net in ('g', 'd'):
+        module, opt = getattr(state, net), getattr(state, f'{net}_opt')
+        entries, _ = _legacy_entries(module)
+        tree[f'{net}_params'], tree[f'{net}_bn'] = legacy_to_jax(module)
+        tree[f'{net}_opt'] = _opt_state(
+            opt, [t for _, t, _ in entries],
+            lambda arrays, entries=entries: _legacy_tree(entries, arrays))
+    return tree
+
+
+def load_jax_legacy_state(state, tree):
+    """Restore a legacy train state in place from the JAX legacy trainer's
+    state pytree (every leaf present)."""
+    for net in ('g', 'd'):
+        module, opt = getattr(state, net), getattr(state, f'{net}_opt')
+        load_legacy(module, tree[f'{net}_params'], tree[f'{net}_bn'])
+        entries, _ = _legacy_entries(module)
+        _load_opt_state(
+            opt, [t for _, t, _ in entries], tree[f'{net}_opt'],
+            lambda t, i, entries=entries: torch.from_numpy(np.array(
+                _legacy_from_layout(_get_path(t, entries[i][0]),
+                                    entries[i][2]))))

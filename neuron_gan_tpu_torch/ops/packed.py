@@ -38,7 +38,7 @@ import torch.nn.functional as F
 
 from neuron_gan_tpu_torch.ops.equalized import calculate_gain
 from neuron_gan_tpu_torch.ops.pixelnorm import pixel_norm
-from neuron_gan_tpu_torch.ops.resize import upsample2_bilinear
+from neuron_gan_tpu_torch.ops.resize import edge_pad1, upsample2_bilinear
 from neuron_gan_tpu_torch.runtime.device import precision_scope
 
 
@@ -282,7 +282,7 @@ def up2_equalized_conv3x3(x, weight, *, neg_slope=0.2):
                          f'2, got {tuple(x.shape)}')
     scale = _eq_scale3x3(weight, neg_slope)
     co = weight.shape[0]
-    y = F.conv2d(F.pad(x, (1, 1, 1, 1), mode='replicate'),
+    y = F.conv2d(edge_pad1(x),
                  fuse_up2_conv3x3_weight(weight, scale).to(x.dtype))
     w_s = weight * scale
     # an output line (B, Co, 2n) of the original grid as its two parities
@@ -486,7 +486,7 @@ def up2_equalized_conv3x3_p8(x, weight, *, neg_slope=0.2):
                          f'square input of even side, got {tuple(x.shape)}')
     scale = _eq_scale3x3(weight, neg_slope)
     co, m = weight.shape[0], n // 2
-    y = F.conv2d(F.pad(x, (1, 1, 1, 1), mode='replicate'),
+    y = F.conv2d(edge_pad1(x),
                  fuse_up2_conv3x3_weight_w8(weight, scale).to(x.dtype),
                  stride=(1, 2))
     w_s = weight * scale

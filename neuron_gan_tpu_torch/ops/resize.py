@@ -37,13 +37,22 @@ def upsample2_bilinear(x):
 def up2_1d(x, dim):
     """Double the length of ``dim`` (2 or 3 of NCHW) with torch bilinear
     (align_corners=False): out[2k] = 0.25 x[k-1] + 0.75 x[k],
-    out[2k+1] = 0.75 x[k] + 0.25 x[k+1], edge-clamped."""
+    out[2k+1] = 0.75 x[k] + 0.25 x[k+1], edge-clamped.  The edges are
+    copied by a cat, not by replicate padding, whose CUDA backward
+    accumulates with atomics: the gradient would vary run to run."""
     n = x.shape[dim]
-    xp = F.pad(x, (1, 1, 0, 0) if dim == 3 else (0, 0, 1, 1), mode='replicate')
+    xp = torch.cat([x.narrow(dim, 0, 1), x, x.narrow(dim, n - 1, 1)], dim)
     x75 = 0.75 * x
     even = 0.25 * xp.narrow(dim, 0, n) + x75
     odd = x75 + 0.25 * xp.narrow(dim, 2, n)
     return torch.stack([even, odd], dim + 1).flatten(dim, dim + 1)
+
+
+def edge_pad1(x):
+    """NCHW ``x`` with its outer rows and columns repeated once: replicate
+    padding by 1, through cats (see ``up2_1d``)."""
+    x = torch.cat([x[..., :1, :], x, x[..., -1:, :]], 2)
+    return torch.cat([x[..., :1], x, x[..., -1:]], 3)
 
 
 def avg_pool(x, k):

@@ -12,6 +12,13 @@ changes (``TrainSchedule.chunk_end``).
 Runs on the card unless ``--device cpu`` (or the ``device`` knob) asks for
 the CPU; without CUDA the default raises.
 
+``mesh_shape={'data': N}`` trains data-parallel over N processes
+(``parallel/data.py``): the command spawns them itself, one per card (NCCL;
+gloo under ``--device cpu``), or joins the group of a launcher that set
+``WORLD_SIZE`` (``torchrun``).  A dataset stack above ``hbm_budget_mb``
+streams from the host (``streaming.py``).  ``wgan=True`` runs the legacy
+fixed-resolution WGAN trainer (``legacy_train.py``).
+
 Randomness: each chunk draws from a fresh torch.Generator on the device,
 seeded from (seed + 977, the chunk's first epoch) — the counterpart of
 the JAX package's ``fold_in(PRNGKey(seed + 977), epoch)`` — so a session
@@ -44,8 +51,11 @@ from neuron_gan_tpu_torch.losses import d_w_loss, g_w_loss
 from neuron_gan_tpu_torch.metrics import swd_multiscale
 from neuron_gan_tpu_torch.models import (
     DiscriminatorPG, GeneratorPG, GrowthState, PGConfig)
+from neuron_gan_tpu_torch.parallel import DataParallel, data_ranks, spawn
 from neuron_gan_tpu_torch.runtime import precision_scope, resolve_device
 from neuron_gan_tpu_torch.schedule import TrainSchedule
+from neuron_gan_tpu_torch.streaming import (
+    group_batches_for_budget, run_epochs_streaming)
 from neuron_gan_tpu_torch.utils.crashdump import save_vars
 from neuron_gan_tpu_torch.utils.io import validated_input
 from neuron_gan_tpu_torch.utils.latents import sample_latent_vec
@@ -116,7 +126,7 @@ def build_parser():
     return parser
 
 
-def load_config(argv):
+def load_config(argv, interactive=True):
     """Parse ``argv`` and merge the configuration: defaults < config file <
     explicitly typed CLI flags.  Returns the config module."""
     options = build_parser().parse_args(argv)
@@ -126,15 +136,51 @@ def load_config(argv):
     if options.configs:
         overwritten = {arg: getattr(options, arg) for arg in input_args
                        if hasattr(options, arg)}
-        config.import_configs(options.configs, overwritten_configs=overwritten)
+        config.import_configs(options.configs, overwritten_configs=overwritten,
+                              interactive=interactive)
     else:
         config.reset_configs()
         for arg in input_args:
             if hasattr(options, arg):
                 setattr(config, arg, getattr(options, arg))
         config.define_ID_dependent_configs()
-        config.validate_configs()
+        config.validate_configs(interactive=interactive)
     return config
+
+
+def confirm_id(config):
+    """Offer a new ID when a fresh run's ID already names weights (the
+    reference's prompt; a non-interactive session keeps the ID)."""
+    if config.resume:
+        return
+    existent = [f for f in os.listdir(config.weights_dir)
+                if f.endswith(('.pth', '.npz'))]
+    ids_existent = set()
+    for f in existent:
+        # also the Checkpointer's immutable snapshot files
+        # (GenDisc_ab12_1k.npz), so an ID whose rolling file was
+        # deleted still registers as taken
+        m = re.match(r'(?P<prefix>[^_]+)_(?P<ID>[^_.]+?)(?:_\d+k)?\.(pth|npz)$', f)
+        if m:
+            ids_existent.add(m.group('ID'))
+    if config.ID in ids_existent:
+        ans = validated_input(
+            'ID={} already exists. Use a new ID(y/n)?'.format(config.ID),
+            lambda x: x in ['y', 'n'], default='n')
+        if ans == 'y':
+            config.ID = validated_input('Type a new ID:',
+                                        lambda x: x not in ids_existent,
+                                        'ID already exists.')
+            config.define_ID_dependent_configs()
+
+
+def load_dataset(config):
+    return NeuronDataset(directory=config.dataset_dir,
+                         image_size=config.image_size,
+                         augmentations=True,
+                         im_translation=config.translation,
+                         seed=config.seed,
+                         preload_limit_mb=config.dataset_preload_limit_mb)
 
 
 def chunk_rng(device, seed, first_epoch):
@@ -147,43 +193,31 @@ def chunk_rng(device, seed, first_epoch):
 
 class TrainSession:
     """One training session: the configuration, dataset, models, optimizers
-    and checkpointer, and ``train()`` over [epoch_init, epoch_final)."""
+    and checkpointer, and ``train()`` over [epoch_init, epoch_final).
 
-    def __init__(self, config):
+    With ``dp`` (parallel.DataParallel) it is one rank of a data-parallel
+    run: it trains on its rows of every batch, and rank 0 alone writes
+    checkpoints, grids, plots and the SWD series."""
+
+    def __init__(self, config, dp=None):
         self.config = config
+        self.dp = dp
+        self.writer = dp is None or dp.rank == 0
         config.print_configs()
-        # 'default' and 'cuda' are the card, which must exist
-        self.device = resolve_device(config.device)
-
-        # ------------------------------------------------------ ID check
-        if not config.resume:
-            existent = [f for f in os.listdir(config.weights_dir)
-                        if f.endswith(('.pth', '.npz'))]
-            ids_existent = set()
-            for f in existent:
-                # also the Checkpointer's immutable snapshot files
-                # (GenDisc_ab12_1k.npz), so an ID whose rolling file was
-                # deleted still registers as taken
-                m = re.match(r'(?P<prefix>[^_]+)_(?P<ID>[^_.]+?)(?:_\d+k)?\.(pth|npz)$', f)
-                if m:
-                    ids_existent.add(m.group('ID'))
-            if config.ID in ids_existent:
-                ans = validated_input(
-                    'ID={} already exists. Use a new ID(y/n)?'.format(config.ID),
-                    lambda x: x in ['y', 'n'], default='n')
-                if ans == 'y':
-                    config.ID = validated_input('Type a new ID:',
-                                                lambda x: x not in ids_existent,
-                                                'ID already exists.')
-                    config.define_ID_dependent_configs()
+        if dp is None:
+            # 'default' and 'cuda' are the card, which must exist
+            self.device = resolve_device(config.device)
+            confirm_id(config)
+        else:
+            self.device = dp.device
 
         # ------------------------------------------------------ dataset
-        self.dataset = NeuronDataset(directory=config.dataset_dir,
-                                     image_size=config.image_size,
-                                     augmentations=True,
-                                     im_translation=config.translation,
-                                     seed=config.seed,
-                                     preload_limit_mb=config.dataset_preload_limit_mb)
+        # rank 0 first: it may build the loader's memmap cache
+        if dp is not None and dp.rank != 0:
+            dp.barrier()
+        self.dataset = load_dataset(config)
+        if dp is not None and dp.rank == 0:
+            dp.barrier()
         self.n_images = len(self.dataset)
 
         # ------------------------------------------------------ networks
@@ -231,18 +265,27 @@ class TrainSession:
         elif config.weights_init:
             growth = self._weights_init(os.path.join(config.weights_dir,
                                                      config.weights_init), growth)
+        if dp is not None:
+            dp.broadcast_state(self.state)
         self.dataset.set_image_size(growth.image_size)
 
-        # the stack lives on the device; above the budget the JAX package
-        # streams it from the host, which the port does not
+        # the stack lives on the device, or above the budget on the host,
+        # streamed per epoch (the reference re-reads oversize datasets from
+        # disk per item, NeuronDataset.py:128-146)
         stack_bytes = self.n_images * self.dataset.padded_size ** 2 * 4
-        if config.hbm_budget_mb and stack_bytes > config.hbm_budget_mb * 2 ** 20:
-            raise NotImplementedError(
-                'dataset stack {:.0f} MB exceeds hbm_budget_mb={}: streaming '
-                'from the host is not ported (ROADMAP A9)'.format(
-                    stack_bytes / 2 ** 20, config.hbm_budget_mb))
-        self.images_stack = torch.from_numpy(
-            np.array(self.dataset.images)).to(self.device)
+        self.streaming = bool(config.hbm_budget_mb) and \
+            stack_bytes > config.hbm_budget_mb * 2 ** 20
+        if self.streaming:
+            print('dataset stack {:.0f} MB exceeds hbm_budget_mb={} — streaming '
+                  'from host per epoch'.format(stack_bytes / 2 ** 20,
+                                               config.hbm_budget_mb))
+            # a bounded sample on the device: checkpoint artifacts and the
+            # SWD real set
+            self.images_stack = torch.from_numpy(
+                np.array(self.dataset.images[:64])).to(self.device)
+        else:
+            self.images_stack = torch.from_numpy(
+                np.array(self.dataset.images)).to(self.device)
 
         # ------------------------------------------------------ schedule
         self.sched = TrainSchedule(transit_sch=tuple(config.transit_sch),
@@ -275,7 +318,7 @@ class TrainSession:
         self.swd_plot_path = os.path.join(config.plots_dir,
                                           'SWD_{}.png'.format(config.ID))
         self.swd_records = []
-        if config.swd_period > 0:
+        if config.swd_period > 0 and self.writer:
             if config.resume and os.path.exists(self.swd_log_path):
                 with open(self.swd_log_path) as fh:
                     records = [json.loads(line) for line in fh if line.strip()]
@@ -460,9 +503,20 @@ class TrainSession:
 
     # ------------------------------------------------------------ training
     def _run_chunk(self, spec, epoch, n_epochs, profile):
-        # looked up at call time, so a caller may wrap it
-        runner = train_step.make_epoch_runner(self.model_cfg, spec, n_epochs)
         rng = chunk_rng(self.device, self.config.seed, epoch)
+        if self.streaming:
+            max_group = group_batches_for_budget(
+                spec, self.dataset.padded_size,
+                self.config.hbm_budget_mb * 2 ** 20)
+
+            def runner(state, _, rng_, first_epoch):
+                return run_epochs_streaming(
+                    self.model_cfg, spec, state, self.dataset.images, rng_,
+                    first_epoch, n_epochs, max_group, self.dp)
+        else:
+            # looked up at call time, so a caller may wrap it
+            runner = train_step.make_epoch_runner(self.model_cfg, spec,
+                                                  n_epochs, self.dp)
         if not profile:
             return runner(self.state, self.images_stack, rng, epoch).cpu().numpy()
         from torch.profiler import ProfilerActivity, profile as profiler
@@ -501,7 +555,7 @@ class TrainSession:
             spec = self.make_spec(epoch, n_critic)
             # one trace of a steady chunk (not the session's first)
             profile = (bool(config.profile_dir) and epoch > self.epoch_init
-                       and not profiled)
+                       and not profiled and self.writer)
             stats = self._run_chunk(spec, epoch, n_epochs_chunk, profile)
             profiled = profiled or profile
 
@@ -526,20 +580,23 @@ class TrainSession:
             epoch = chunk_end + 1
             # save on the period, and at session end so trailing epochs of
             # a run off the period are never trained then discarded
-            if (chunk_end % config.checkpointing_period == 0
-                    or chunk_end == self.epoch_final - 1):
+            if self.writer and (chunk_end % config.checkpointing_period == 0
+                                or chunk_end == self.epoch_final - 1):
                 growth_end = self.growth_at(chunk_end)
                 self.save_checkpoint(chunk_end, growth_end)
                 self.checkpoint_artifacts(chunk_end, growth_end)
             # quality monitor: when this chunk crossed a multiple of
             # swd_period (chunks need not land on multiples)
-            if config.swd_period > 0 and (
+            if self.writer and config.swd_period > 0 and (
                     chunk_end // config.swd_period
                     > (chunk_start - 1) // config.swd_period):
                 try:
                     self.swd_monitor(chunk_end, self.growth_at(chunk_end))
                 except Exception as exc:  # monitoring must never kill training
                     print(f'SWD monitor skipped: {exc}')
+            if self.dp is not None:
+                # the other ranks wait while rank 0 writes
+                self.dp.barrier()
         return self
 
     def _monitor_line(self, monitored, e, n_critic, st, start_time):
@@ -569,11 +626,61 @@ class TrainSession:
         print(', '.join(s + ':' + v for s, v in monitored.items()))
 
 
+def _train_rank(rank, world_size, init_method, argv, local_rank=None):
+    """One rank of a data-parallel session; rank 0 alone prints.  Returns
+    the rank's finished session."""
+    if rank != 0:
+        sys.stdout = open(os.devnull, 'w')
+    config = load_config(argv, interactive=False)
+    if resolve_device(config.device).type == 'cuda':
+        local = rank if local_rank is None else local_rank
+        if local >= torch.cuda.device_count():
+            raise ValueError(f'mesh_shape={config.mesh_shape!r} needs '
+                             f'{world_size} GPUs, have '
+                             f'{torch.cuda.device_count()}')
+        device = torch.device('cuda', local)
+    else:
+        # CPU ranks share the host's cores
+        torch.set_num_threads(1)
+        device = torch.device('cpu')
+    dp = DataParallel.init(rank, world_size, init_method, device)
+    print('data parallel: {} ranks, {} on {}'.format(
+        world_size, torch.distributed.get_backend(), device))
+    try:
+        return TrainSession(config, dp).train()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
 def main(argv=None):
     """Run one training session; returns it (its state, checkpointer and
-    schedule) to an in-process caller."""
-    config = load_config(sys.argv[1:] if argv is None else list(argv))
-    return TrainSession(config).train()
+    schedule) to an in-process caller: under a launcher, this rank's; none
+    when it spawned the ranks itself.  The legacy WGAN path returns its
+    train state."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    config = load_config(argv)
+    if config.wgan:
+        from neuron_gan_tpu_torch.legacy_train import wgan_train
+        confirm_id(config)
+        return wgan_train(config, load_dataset(config),
+                          resolve_device(config.device))
+    n = data_ranks(config.mesh_shape)
+    if n is None:
+        return TrainSession(config).train()
+    if 'WORLD_SIZE' in os.environ:
+        # a launcher (torchrun) started this rank
+        world = int(os.environ['WORLD_SIZE'])
+        if world != n:
+            raise ValueError(f'mesh_shape={config.mesh_shape!r} asks for {n} '
+                             f'ranks; the launcher started {world}')
+        return _train_rank(int(os.environ['RANK']), world, 'env://', argv,
+                           int(os.environ.get('LOCAL_RANK', os.environ['RANK'])))
+    device = resolve_device(config.device)
+    if device.type == 'cuda' and n > torch.cuda.device_count():
+        raise ValueError(f'mesh_shape={config.mesh_shape!r} needs {n} GPUs, '
+                         f'have {torch.cuda.device_count()}')
+    confirm_id(config)
+    spawn(_train_rank, n, argv + ['--ID', config.ID])
 
 
 if __name__ == '__main__':

@@ -245,20 +245,29 @@ def _grads_into(loss, params):
         p.grad = torch.zeros_like(p) if g is None else g
 
 
-def make_batch_step(cfg: PGConfig, spec: ChunkSpec):
-    """Build ``step(state, raw_batch, draws, alpha, lr, sim_lam)``: one full
-    G+D update on one raw batch (B, P, P, C) in [0, 1].  Returns the stats
-    (STAT_NAMES) weighted by the batch size, on the device.  After it, the
-    parameters' ``.grad`` hold the last critic step's and the generator
-    step's gradients, taken before their optimizer steps."""
+def make_batch_step(cfg: PGConfig, spec: ChunkSpec, dp=None):
+    """Build ``step(state, raw_batch, draws, alpha, lr, sim_lam[, batch])``:
+    one full G+D update on one raw batch (B, P, P, C) in [0, 1].  Returns
+    the stats (STAT_NAMES) weighted by the batch size, on the device.  After
+    it, the parameters' ``.grad`` hold the last critic step's and the
+    generator step's gradients, taken before their optimizer steps.
+
+    With ``dp`` (parallel.DataParallel), ``raw_batch`` and ``draws`` are
+    this rank's rows ``dp.rows(batch)`` of a global batch of ``batch``
+    rows (possibly none): each gradient is reduced over the ranks before
+    its optimizer step, the similarity loss sees the global batch, and the
+    stats are this rank's rows' share of the global batch's (their sum over
+    the ranks is the 1-process step's)."""
     aug_spec = _augment_spec(cfg, spec)
 
-    def step(state: TrainState, raw_batch, draws, alpha, lr, sim_lam):
+    def step(state: TrainState, raw_batch, draws, alpha, lr, sim_lam,
+             batch=None):
         with precision_scope(cfg.precision):
             return _step(state, raw_batch, _to(draws, raw_batch.device),
-                         alpha, lr, sim_lam)
+                         alpha, lr, sim_lam,
+                         raw_batch.shape[0] if batch is None else batch)
 
-    def _step(state, raw_batch, draws, alpha, lr, sim_lam):
+    def _step(state, raw_batch, draws, alpha, lr, sim_lam, batch):
         b = raw_batch.shape[0]
         a = alpha if spec.fading else None
 
@@ -268,12 +277,13 @@ def make_batch_step(cfg: PGConfig, spec: ChunkSpec):
         def d_apply(x):
             return state.d(x, spec.phase, a)
 
-        images = augment_batch(raw_batch, draws['augment'], aug_spec)
+        images = (augment_batch(raw_batch, draws['augment'], aug_spec)
+                  if b else None)
         d_params = list(state.d.parameters())
         g_params = list(state.g.parameters())
         _set_lr(state.d_opt, lr)
         _set_lr(state.g_opt, lr)
-        zero = torch.zeros((), device=images.device)
+        zero = torch.zeros((), device=raw_batch.device)
 
         def d_total_loss(z1, z2, eps):
             with torch.no_grad():
@@ -291,21 +301,45 @@ def make_batch_step(cfg: PGConfig, spec: ChunkSpec):
                                      spec.gp_lambda, remat=spec.gp_remat)
             return loss_w + gp, (sr, sf, gp)
 
+        def grads_into(loss, params):
+            # a rank without rows still joins the reduction
+            if b:
+                _grads_into(loss, params)
+            else:
+                for p in params:
+                    p.grad = torch.zeros_like(p)
+            if dp is not None:
+                dp.reduce_grads(params, b / batch)
+
         sr = sf = gp = d_loss = zero
         for j in range(spec.n_critic):
-            d_loss, (sr, sf, gp) = d_total_loss(*draws['critic'][j])
-            _grads_into(d_loss, d_params)
+            if b:
+                d_loss, (sr, sf, gp) = d_total_loss(*draws['critic'][j])
+            grads_into(d_loss, d_params)
             state.d_opt.step()
-        if spec.n_critic == 0:
+        if spec.n_critic == 0 and b:
             # loss computed for monitoring only (reference train.py:369-372)
             d_loss, (sr, sf, gp) = d_total_loss(*draws['critic'][0])
 
-        g_loss, z = g_w_loss(g_apply, d_apply, draws['zg'])
+        g_loss = zero
+        if b:
+            g_loss, z = g_w_loss(g_apply, d_apply, draws['zg'])
         g_sim = zero
         if spec.sim_lambda0 > 0:
-            g_sim = similarity_loss(images, z, 1.0) * sim_lam
+            if dp is None:
+                sim_images, sim_z = images, z
+            else:
+                # pairwise over the global batch: its rows from every rank
+                res = cfg.resolution(spec.phase)
+                sim_images = dp.gather_rows(
+                    images.reshape(b, -1) if b else
+                    raw_batch.new_zeros((0, cfg.n_colors * res * res)), batch)
+                sim_z = dp.gather_rows(
+                    z.reshape(b, -1) if b else
+                    raw_batch.new_zeros((0, spec.latent_dim)), batch)
+            g_sim = similarity_loss(sim_images, sim_z, 1.0) * sim_lam
             g_loss = g_loss + g_sim
-        _grads_into(g_loss, g_params)
+        grads_into(g_loss, g_params)
         state.g_opt.step()
 
         if spec.ema_beta > 0:
@@ -322,35 +356,65 @@ def make_batch_step(cfg: PGConfig, spec: ChunkSpec):
 # Epoch runner
 # --------------------------------------------------------------------------
 
-def make_epoch_runner(cfg: PGConfig, spec: ChunkSpec, n_epochs: int):
+def epoch_order(spec: ChunkSpec, rng: torch.Generator):
+    """The epoch's permutation of the stack, the epoch's first draw from
+    ``rng`` (None when ``spec.shuffle`` is off: the stack's order)."""
+    if not spec.shuffle:
+        return None
+    return torch.randperm(spec.n_images, generator=rng, device=rng.device)
+
+
+def batch_draws(rng, cfg, spec, batch, frame, dp=None):
+    """``draw_batch`` for a global batch of ``batch`` rows, and this rank's
+    rows of it under ``dp``: every rank draws the whole batch."""
+    draws = draw_batch(rng, cfg, spec, batch, frame)
+    if dp is None:
+        return draws
+    from neuron_gan_tpu_torch.parallel import take_rows
+    return take_rows(draws, *dp.rows(batch))
+
+
+def make_epoch_runner(cfg: PGConfig, spec: ChunkSpec, n_epochs: int, dp=None):
     """Build ``run(state, images_stack, rng, first_epoch)`` -> per-epoch
     stats (n_epochs, 6), each epoch's batch-weighted sums over n_images.
 
     ``images_stack`` is (N, P, P, C) in [0, 1] on the models' device; each
     epoch draws a permutation (when ``spec.shuffle``), then the batch
-    draws, from ``rng``.  The last batch may be partial."""
-    step = make_batch_step(cfg, spec)
+    draws, from ``rng``.  The last batch may be partial.  With ``dp`` each
+    rank trains on its rows of every batch and the stats are summed over
+    the ranks."""
+    step = make_batch_step(cfg, spec, dp)
 
     def run(state: TrainState, images_stack, rng: torch.Generator,
             first_epoch: int):
-        bs, frame = spec.batch_size, images_stack.shape[1]
-        n_steps = spec.n_full_batches + (1 if spec.batch_remainder else 0)
-        out = []
+        frame = images_stack.shape[1]
+        totals = []
         for epoch in range(first_epoch, first_epoch + n_epochs):
             alpha, lr, lam = epoch_scalars(spec, epoch)
-            order = None
-            if spec.shuffle:
-                order = torch.randperm(spec.n_images, generator=rng,
-                                       device=rng.device)
+            order = epoch_order(spec, rng)
+            if order is not None:
                 order = order.to(images_stack.device)
             total = torch.zeros(len(STAT_NAMES), device=images_stack.device)
-            for i in range(n_steps):
-                rows = slice(i * bs, min((i + 1) * bs, spec.n_images))
+            for start in range(0, spec.n_images, spec.batch_size):
+                b = min(spec.batch_size, spec.n_images - start)
+                rows = slice(start, start + b)
+                if dp is not None:
+                    lo, hi = dp.rows(b)
+                    rows = slice(start + lo, start + hi)
                 raw = (images_stack[order[rows]] if order is not None
                        else images_stack[rows])
-                draws = draw_batch(rng, cfg, spec, raw.shape[0], frame)
-                total = total + step(state, raw, draws, alpha, lr, lam)
-            out.append(total / spec.n_images)
-        return torch.stack(out)
+                draws = batch_draws(rng, cfg, spec, b, frame, dp)
+                total = total + step(state, raw, draws, alpha, lr, lam, b)
+            totals.append(total)
+        return epoch_stats(totals, spec, dp)
 
     return run
+
+
+def epoch_stats(totals, spec: ChunkSpec, dp=None):
+    """Per-epoch stats from each epoch's batch-weighted sums (summed over
+    the ranks under ``dp``)."""
+    totals = torch.stack(totals)
+    if dp is not None:
+        dp.all_reduce_(totals)
+    return totals / spec.n_images
