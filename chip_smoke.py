@@ -64,6 +64,15 @@ Phases, each printing one JSON line:
               epochs 1-4 then resumed to 6: finite stats, the critic within
               +-0.01, family 'wgan', a bit-exact resume, no ported kernel
               launched (``check_legacy``);
+   stretch    ``tools/stretch_1024``'s body at 6 epochs: the shipping step
+              one level deeper (7 levels to 1024^2, the 1024^2 level in
+              the 2x4 layout at 8 channels: K1/K2 at 8 groups of 8),
+              batch 4, an EMA shadow; a warm-up and a timed chunk
+              (steps/s), peak memory, exact launches by dtype, grouping
+              and whole shape (the -ema grid's G forward included), K1/K2
+              at C_g 8 launched, no runtime-width instance, 0 < d_ema <
+              d_raw, the .npz and the -ema grid; then one 1024^2 step by
+              ``parity`` at the shipping bound (``check_stretch``);
 4. kernels    each kernel against its plain PyTorch version on the card, in
               float32 and in bfloat16, at every shape a training path gives
               it (plus ragged cases): forward, backward and a GP-style
@@ -99,11 +108,25 @@ Phases, each printing one JSON line:
               against the same function on the CPU over the flagship
               stack at out 512, 256 and 32: source indices equal and
               values within 1e-5 except at rounding ties, which are
-              counted (``check_augment``); its device time.
+              counted (``check_augment``); its device time;
+8. tools      (it opens profiler sessions, so it runs after every
+              training phase) ``stacked_ab`` cut to 40 epochs at 16^2 ->
+              128^2: both arms' SWD finite, the verdict line, each arm's
+              launches exactly (reference arm float32, shipping arm
+              bfloat16); ``step_profile`` at the shipping path's top phase
+              (every stage finite, the critic with the GP slower than
+              without); ``op_trace`` at phases 3 and 5 (categories summing
+              to the total, layout kernels and copies listed);
+              ``convert_checkpoint`` .npz -> .pth -> .npz on the cli
+              phase's checkpoint (what the reference format carries, bit
+              for bit); the native loader built with g++ and taken by the
+              dataset, its statistics numpy's within 1e-12 and its stack
+              numpy's bit for bit (``check_tools``).
 
 Then the kernel table (one JSON line: a float32 and a bfloat16 row for each
 kernel, each with its launches per steady 512^2 step, as counted, and the
-sum of their bounds, and its launches on the stream and dp phases' paths;
+sum of their bounds, and its launches on the stream, dp and stretch
+phases' paths (and the stretch path's per step);
 K4's with every shape's times), the card's nvidia-smi
 line, and last ``{"ok": true, "device":
 {...}}``.  Any failed check raises and the script
@@ -134,25 +157,14 @@ from unittest import mock
 import numpy as np
 
 from neuron_gan_tpu_torch.flagship import (
-    D_SHAPES, G_SHAPES, PACKED8_SHAPES, PACKED_SHAPES, PATHS,
-    UNPACKED_OF_PACKED, epilogue_shapes, steady_step_sites)
-from neuron_gan_tpu_torch.runtime.timing import device_ms
+    PATHS, SAMPLE_PASSES, epilogue_shapes, site_shapes, steady_step_sites,
+    step_passes, step_sites)
+from neuron_gan_tpu_torch.runtime.timing import (
+    device_ms, nvidia_smi_line, nvidia_smi_lines)
 
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
-
-
-def nvidia_smi_lines():
-    """Every card's name and power limit."""
-    out = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()
-
-
-def nvidia_smi_line():
-    return nvidia_smi_lines()[0]
 
 
 def cuda_ms(fn, iters=30, warmup=3):
@@ -235,10 +247,12 @@ def at_offset(torch, t, offset):
 # phase 4: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_epilogue_kernels(torch, lpn, seed):
+def check_epilogue_kernels(torch, lpn, seed, more_bf16=()):
     """K1/K2 (the LReLU + PixelNorm pair) against their plain versions:
     float32 by tolerance, bfloat16 within 2 bfloat16 ulps of the output's
-    scale (both compute in float32 and round once)."""
+    scale (both compute in float32 and round once).  ``more_bf16``: (x
+    shape, grouping) of another path's bfloat16 launches (the stretch
+    path's), checked and timed beside the flagship paths' shapes."""
     gen = torch.Generator(device='cuda').manual_seed(seed)
     dev = 'cuda'
     # largest errors: absolute on inputs of unit scale; width 2's float32
@@ -296,20 +310,22 @@ def check_epilogue_kernels(torch, lpn, seed):
 
     f32_f = dict(rtol=1e-5, atol=1e-6)
     f32_b = dict(rtol=1e-4, atol=1e-5)
-    for shape in G_SHAPES + D_SHAPES:
+    for shape in site_shapes('unpacked', 'k1'):
         check(shape, 1, torch.float32, f32_f, f32_b)
-    for shape in sorted(set(PACKED_SHAPES)):
+    for shape in site_shapes('packed', 'k3'):
         check(shape, 4, torch.float32, f32_f, f32_b)
     check((8, 64, 16, 16), 8, torch.float32, f32_f, f32_b)
     check((3, 16, 5, 7), 1, torch.float32, f32_f, f32_b)     # ragged tail
     # every shape of the mixed and shipping paths in bfloat16, the 2x4
     # blocks' at 8 groups
-    for shape in sorted(set(UNPACKED_OF_PACKED)):
+    for shape in site_shapes('mixed', 'k1', 1):
         check(shape, 1, torch.bfloat16, None, None)
-    for shape in sorted(set(PACKED_SHAPES)):
+    for shape in site_shapes('mixed', 'k3'):
         check(shape, 4, torch.bfloat16, None, None)
-    for shape in sorted(set(PACKED8_SHAPES)):
+    for shape in site_shapes('shipping', 'k1', 8):
         check(shape, 8, torch.bfloat16, None, None)
+    for shape, n_groups in sorted(set(more_bf16)):
+        check(shape, n_groups, torch.bfloat16, None, None)
     check((3, 16, 5, 7), 1, torch.bfloat16, None, None)
     check((8, 64, 16, 16), 8, torch.bfloat16, None, None)
     # the instances no path shape reaches, in both dtypes: group widths 1,
@@ -412,7 +428,10 @@ def check_epilogue_kernels(torch, lpn, seed):
     by_shape = []
     for dtype in (torch.float32, torch.bfloat16):
         dt = str(dtype).removeprefix('torch.')
-        for shp, n_groups in sorted(epilogue_shapes(dtype)):
+        shapes = epilogue_shapes(dtype)
+        if dtype == torch.bfloat16:
+            shapes |= set(more_bf16)
+        for shp, n_groups in sorted(shapes):
             xs, gs = randn(shp, dtype), randn(shp, dtype)
             item = xs.element_size()
             inst = instances[f'{dt}/{shp[1] // n_groups}']
@@ -543,7 +562,7 @@ def check_packed_kernels(torch, pcl, seed):
         checked.append({'gp_second_order': [b, k, h, w], 'n': n})
 
     with precision_scope('highest'):
-        for _, n, h, w in PACKED_SHAPES:
+        for _, n, h, w in site_shapes('packed', 'k3'):
             check(8, n, n, h, w)
         check(3, 20, 32, 5, 37)                  # ragged: K, H and W tails
         check(2, 64, 16, 9, 33)                  # the narrowest width
@@ -627,15 +646,16 @@ def conv_by_shape(torch, pcl, gen, dtype):
     gather too), the plain version and F.conv2d (with w_packed in x's
     type); its bound beside."""
     rows = []
-    for _, n, h, w in sorted(set(PACKED_SHAPES)):
+    for _, n, h, w in site_shapes('packed', 'k3'):
         xs, wps = packed_case(torch, gen, 8, n, n, h, w)
         xs = xs.to(dtype)
         wds = wps.to(dtype)
         launch, _, _ = pcl.conv_fwd_launcher(xs, wps)
+        nonzero_w = int(torch.count_nonzero(wps))
         n_bytes, n_ops, bound_ms, bound_by = conv_bound(
-            xs.shape, n, int(torch.count_nonzero(wps)), xs.element_size())
+            xs.shape, n, nonzero_w, xs.element_size())
         rows.append({
-            'x': [8, n, h, w], 'n': n,
+            'x': [8, n, h, w], 'n': n, 'nonzero_w': nonzero_w,
             'smem_bytes': pcl.conv_fwd_smem(n, dtype),
             'kernels_ms': device_ms(launch),
             'wrapper_ms': device_ms(lambda: pcl._conv_fwd(xs, wps, 0.2, 1e-8)),
@@ -716,7 +736,7 @@ def check_packed_kernels_bf16(torch, pcl, seed):
         checked.append({'gp_second_order': [b, k, h, w], 'n': n,
                         'dtype': 'bfloat16'})
 
-    for _, n, h, w in PACKED_SHAPES:
+    for _, n, h, w in site_shapes('packed', 'k3'):
         check(8, n, n, h, w)
     check(3, 20, 32, 5, 38)                  # ragged: K, H and W tails
     check(2, 64, 16, 9, 34)                  # the narrowest width
@@ -803,7 +823,7 @@ def check_dz_kernel(torch, pcl, seed):
             err[dt] = max(err[dt], e)
             checked.append({'y': list(y.shape), 'dtype': dt, 'case': what})
 
-        shapes = sorted(set(PACKED_SHAPES))
+        shapes = site_shapes('packed', 'k3')
         for shape in shapes + DZ_TAILS[dt]:
             y, r, g, ct_r = case(shape, dtype)
             check(y, r, g, ct_r, 'live')
@@ -997,70 +1017,20 @@ def launch_key(dtype, n_groups=None):
     return dtype if n_groups is None else f'{dtype}/{n_groups}'
 
 
-def block_layouts(cfg, phase):
-    """The layout of each block a step of ``cfg`` at ``phase`` runs, G's
-    then D's: 'unpacked' (two K1 at 1 group), 'packed' (the 2x2 layout: a
-    K1 at 4 groups and a K3) or 'p8' (the 2x4 layout: two K1 at 8
-    groups), by the JAX package's routing rules (models/pggan.py's
-    predicates): a G block enters the 2x4 layout natively at a fused
-    up-conv, a D block stays in it where its input is 2x4, and a 2x2 block
-    of 64 packed channels runs its tail in it."""
-    from neuron_gan_tpu_torch.models.pggan import (
-        _want_packed, _want_packed8_d, _want_packed8_g)
-    f_g, f_d, n = cfg.n_gen_features, cfg.n_dis_features, cfg.n_layers_max
-
-    def layout(native, res, feat):
-        if not _want_packed(cfg, res):
-            return 'unpacked'
-        tail8 = (cfg.packed_lanes == 128 and 4 * feat == 64
-                 and (res // 2) % 2 == 0)
-        return 'p8' if native or tail8 else 'packed'
-
-    g = [layout(_want_packed8_g(cfg, cfg.resolution(i + 1), f_g[i + 1]),
-                cfg.resolution(i + 1), f_g[i + 1]) for i in range(phase)]
-    d, res = [], cfg.resolution(phase)
-    in_p8 = _want_packed8_d(cfg, res, f_d[n - 1 - phase])
-    for i in range(n - 1 - phase, n - 1):
-        res //= 2
-        in_p8 = in_p8 and _want_packed8_d(cfg, res, f_d[i + 1])
-        d.append(layout(in_p8, res, f_d[i + 1]))
-    return g, d
-
-
-def expected_launches(cfg, phases_per_step, gp_remat=False):
-    """Kernel launches of batch steps of ``cfg`` at these phases, keyed by
-    ``launch_key``, as tests/test_torch_train_step.py and
-    tests/test_torch_packed8.py count them on the CPU.
-
-    Per step: G runs 3 forwards and 1 backward; D runs 4 forwards (real,
-    fake, the GP's interpolate, the generator step) and 5 backwards (real,
-    fake, the GP's inner pass, the GP's outer pass back through the
-    interpolate's forward, the generator step).  Under ``gp_remat`` D runs
-    the interpolate's forward three times: checkpointed (nothing saved),
-    then recomputed in each of the GP's two backward passes (the outer
-    pass unpacks the inner one's saved tensors, which the checkpoint
-    recomputes again).  Each block launches by its
-    layout (``block_layouts``); each K1 forward has its K2 in a backward,
-    each K3 its K4.  Every launch takes the blocks' dtype (cfg.dtype): the
-    fused level boundaries change no count."""
+def expected_launches(cfg, phases_per_step, gp_remat=False, passes=None):
+    """Kernel launches of batch steps of ``cfg`` at these phases (or of
+    other ``passes``, e.g. ``SAMPLE_PASSES``), keyed by ``launch_key``, as
+    tests/test_torch_train_step.py and tests/test_torch_packed8.py count
+    them on the CPU: ``flagship.step_sites`` summed by kernel, dtype and
+    grouping.  Every launch takes the blocks' dtype (cfg.dtype): the fused
+    level boundaries change no count."""
     dt = str(cfg.dtype).removeprefix('torch.')
-    k1, k2, k3, k4 = (collections.Counter() for _ in range(4))
-    groups = {'unpacked': 1, 'packed': 4, 'p8': 8}
-    for p in phases_per_step:
-        if not cfg.use_kernels:
-            continue
-        g, d = block_layouts(cfg, p)
-        for layouts, fwd, bwd in ((g, 3, 1), (d, 6 if gp_remat else 4, 5)):
-            for lay in layouts:
-                key = launch_key(dt, groups[lay])
-                n = 1 if lay == 'packed' else 2
-                k1[key] += n * fwd
-                k2[key] += n * bwd
-                if lay == 'packed':
-                    k3[dt] += fwd
-                    k4[dt] += bwd
-    return {k: dict(+c) for k, c in
-            (('k1', k1), ('k2', k2), ('k3', k3), ('k4', k4))}
+    counts = {k: collections.Counter() for k in ('k1', 'k2', 'k3', 'k4')}
+    for p in phases_per_step if cfg.use_kernels else ():
+        for (k, _, case), n in step_sites(
+                cfg, p, 1, passes or step_passes(gp_remat)).items():
+            counts[k][launch_key(dt, case if k in ('k1', 'k2') else None)] += n
+    return {k: dict(+c) for k, c in counts.items()}
 
 
 def reset_counters():
@@ -1285,16 +1255,17 @@ def write_dataset(path, seed, n=16, size=512):
     return path
 
 
-def check_cli(torch, seed):
+def check_cli(torch, seed, keep):
     """The user's entry points at the flagship geometry on 16 synthetic
     512^2 PNGs (the loader pads them to the 768^2 frame): a train session
-    to epoch 10, a resumed one to 16, eval with -swd, eval with -fast."""
+    to epoch 10, a resumed one to 16, eval with -swd, eval with -fast.
+    The final checkpoint is copied into the directory ``keep``."""
     import os
     import tempfile
     with tempfile.TemporaryDirectory() as tmp, \
             open(os.path.join(tmp, 'cli.log'), 'w') as log:
         try:
-            return _check_cli(torch, seed, tmp, log)
+            return _check_cli(torch, seed, tmp, log, keep)
         except BaseException:
             log.flush()
             with open(log.name) as fh:
@@ -1302,7 +1273,7 @@ def check_cli(torch, seed):
             raise
 
 
-def _check_cli(torch, seed, tmp, log):
+def _check_cli(torch, seed, tmp, log, keep):
     size = 512
     import os
     import neuron_gan_tpu_torch.train_step as ts
@@ -1392,8 +1363,10 @@ def _check_cli(torch, seed, tmp, log):
     assert np.isfinite(swd['swd_mean']) and swd['resolution'] == size, swd
     assert all(e['grid'][:2] == [side, side] for e in evals.values()), evals
 
+    import shutil
+    kept = shutil.copy(weights, keep)
     smi = nvidia_smi_line()
-    return {'phase': 'cli', 'nvidia_smi': smi,
+    return {'phase': 'cli', 'nvidia_smi': smi, 'kept_checkpoint': kept,
             'sessions': [{'epochs': [1, n1], 'seconds': round(s1, 3),
                           'epochs_per_s': n1 / s1},
                          {'epochs': [n1 + 1, n_all], 'seconds': round(s2, 3),
@@ -2047,6 +2020,307 @@ def _tree_leaves(tree):
 
 
 # ---------------------------------------------------------------------------
+# phase stretch: the 1024^2 EMA run (tools/stretch_1024.py)
+# ---------------------------------------------------------------------------
+
+STRETCH_EPOCHS = 6
+
+
+def _add_counts(a, b):
+    """Launch counts ``a`` + ``b`` (``expected_launches``' structure)."""
+    out = {k: dict(v) for k, v in a.items()}
+    for key, counts in b.items():
+        for k, n in counts.items():
+            out.setdefault(key, {})[k] = out.get(key, {}).get(k, 0) + n
+    return out
+
+
+def per_step_sites(cases, dtype, n_steps, other_sites):
+    """Launches per step by (kernel, shape, case), as counted: the
+    ``cases`` (``read_cases``) of ``dtype`` less ``other_sites`` (launches
+    outside the steps, by ``step_sites``' key), over ``n_steps``."""
+    counted = collections.Counter(
+        {(k, shape, case): n for (k, d, shape, case), n in cases.items()
+         if d == dtype})
+    counted.subtract(other_sites)
+    return {key: n / n_steps for key, n in counted.items() if n}
+
+
+def check_stretch(torch, seed, work):
+    """``tools/stretch_1024``'s body at 6 epochs (a warm-up chunk and a
+    timed chunk at 1024^2, batch 4, the EMA shadow, the .npz and the -ema
+    grid of 4 samples), then one 1024^2 step by ``parity``.  Held: every
+    kernel's launches exactly (by dtype and grouping, and by whole shape
+    and case: the grid's G forward and 24 steps of ``step_sites`` each), the
+    1024^2 level's K1/K2 at 8 groups of 8 channels launched, no
+    runtime-width instance, 0 < d_ema < d_raw (the tool's own check), the
+    grid's size, and the parity bound with its two planted faults."""
+    import os
+    from neuron_gan_tpu_torch.data.neuron_dataset import decode_image
+    from neuron_gan_tpu_torch.tools import stretch_1024 as s1k
+    args = s1k.parse_args(['--epochs', str(STRETCH_EPOCHS), '--seed', str(seed),
+                           '--out', os.path.join(work, 'stretch')])
+    cfg, spec = s1k.stretch_config(args.batch, args.ema_beta)
+    top, res = cfg.n_phases - 1, cfg.image_size_max
+    n_steps = 2 * args.epochs * spec.n_full_batches
+    n_samples = 4
+
+    reset_counters()
+    result, state = s1k.run(args)
+    torch.cuda.synchronize()
+    launches, cases = read_counters(), read_cases()
+    del state
+    dt = str(cfg.dtype).removeprefix('torch.')
+    want = _add_counts(expected_launches(cfg, [top] * n_steps),
+                       expected_launches(cfg, [top], passes=SAMPLE_PASSES))
+    per_step = per_step_sites(cases, dt, n_steps,
+                              step_sites(cfg, top, n_samples, SAMPLE_PASSES))
+    want_per_step = {key: float(n) for key, n in
+                     step_sites(cfg, top, args.batch).items()}
+    top_x = (args.batch, 8 * cfg.n_gen_features[-1], res // 2, res // 4)
+    c_g8 = {k: cases[k, dt, top_x, 8] for k in ('k1', 'k2')}
+    runtime = {str(k): n for k, n in cases.items() if '/' in k[0]}
+    grid = decode_image(result['ema_grid']).shape
+    side = 2 * (res + 2) + 2
+
+    raw = s1k.padded_stack(cfg, args.batch, seed + 1, 'cuda')
+    par = parity(torch, seed, cfg, dataclasses.replace(spec, ema_beta=0.0),
+                 raw, 'stretch')
+    out = {'phase': 'stretch', 'nvidia_smi': nvidia_smi_line(),
+           'resolution': res, 'batch': args.batch, 'steps': n_steps,
+           'steps_per_s': result['value'], 'timed_steps': result['steps'],
+           'timed_seconds': result['seconds'],
+           'peak_mem_gib': result['peak_mem_gib'],
+           'd_ema_vs_d_raw': result['d_ema_vs_d_raw'],
+           'stats_mean': result['stats_mean'], 'ema_grid': list(grid),
+           'launches': launches, 'c_g8_launches': c_g8,
+           'c_g8_x': list(top_x), 'runtime_width_launches': runtime,
+           'launches_per_step': [
+               {'kernel': k, 'dtype': dt, 'x': list(shape), 'case': c, 'n': n}
+               for (k, shape, c), n in sorted(per_step.items(), key=str)],
+           'parity': par}
+    failed = []
+    if launches != want:
+        failed.append(f'launches {launches} != {want}')
+    if per_step != want_per_step or any(k[1] != dt for k in cases):
+        failed.append('launches by shape differ from step_sites')
+    if not (c_g8['k1'] and c_g8['k2']):
+        failed.append('K1/K2 at C_g 8 not launched')
+    if runtime:
+        failed.append('runtime-width instance launched')
+    if grid[:2] != (side, side):
+        failed.append(f'-ema grid {grid}')
+    if failed:
+        raise AssertionError(f'{failed}: {json.dumps(out)}')
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase tools: the A/B harness, the profilers, the converter, the native
+# loader (neuron_gan_tpu_torch/tools, runtime/native.py)
+# ---------------------------------------------------------------------------
+
+AB_ARGV = ['--epochs', '40', '--transits', '10', '20', '30', '--alpha_step',
+           '0.25', '--res', '128']
+
+
+def _quiet(fn, *a):
+    """fn(*a) with its standard output captured; returns (result, text)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*a)
+    return out, buf.getvalue()
+
+
+def ab_arm_launches(args, n_images, precision_name, kw):
+    """(kernel launches, batch steps) of one arm of ``precision_ab.run_arm``
+    (its keyword arguments ``kw``) under ``args``: every step of the
+    schedule at its phase, batch 8, then the final samples' G forward."""
+    from neuron_gan_tpu_torch.tools import precision_ab as pab
+    cfg = pab.arm_config(precision_name, kw['compute_dtype'], kw['packed_lanes'])
+    sched = pab.arm_schedule(args)
+    phases = []
+    for start, end in sched.plan_chunks(1, args.epochs + 1):
+        phases += [sched.phase_at(start)] * (end - start + 1) * -(-n_images // 8)
+    passes = step_passes(gp_reuse_fakes=kw['gp_reuse_fakes'])
+    return _add_counts(
+        expected_launches(cfg, phases, passes=passes),
+        expected_launches(cfg, [cfg.n_phases - 1], passes=SAMPLE_PASSES)), len(phases)
+
+
+def check_ab(torch, seed, work):
+    """``stacked_ab`` cut to 40 epochs (16^2 -> 128^2): both arms finite,
+    the verdict line parses, each arm's launches exactly
+    ``expected_launches`` over its steps and final samples (reference
+    arm: float32, K1-K4; shipping arm: bfloat16)."""
+    import os
+    from neuron_gan_tpu_torch.tools import precision_ab as pab
+    from neuron_gan_tpu_torch.tools import stacked_ab
+    argv = AB_ARGV + ['--seed', str(seed + 1),
+                      '--out', os.path.join(work, 'stacked_ab')]
+    args = pab.make_quality_ab_parser('stacked_ab').parse_args(argv)
+    arms = {}
+    real_run_arm = pab.run_arm
+
+    def counted(precision_name, dataset, args_, out_dir, device, tag=None,
+                **kw):
+        reset_counters()
+        out = real_run_arm(precision_name, dataset, args_, out_dir, device,
+                           tag=tag, **kw)
+        torch.cuda.synchronize()
+        want, steps = ab_arm_launches(args, len(dataset), precision_name, kw)
+        arms[tag] = {'launches': read_counters(), 'want': want, 'steps': steps}
+        return out
+
+    with mock.patch.object(pab, 'run_arm', counted):
+        results, text = _quiet(stacked_ab.main, argv)
+    lines = [json.loads(ln) for ln in text.splitlines() if ln.startswith('{')]
+    verdict = lines[-1]
+    out = {'arms': {tag: {**results[tag], **arms[tag]} for tag in results},
+           'verdict': verdict}
+    failed = [f'{tag} launches' for tag, a in arms.items()
+              if a['launches'] != a['want']]
+    failed += [f'{tag} SWD' for tag, r in results.items()
+               if not np.isfinite(r['swd_mean'])]
+    if 'seed_verdict_hint' not in verdict or not set(results) <= set(verdict):
+        failed.append('verdict line')
+    ref, ship = arms['reference']['launches'], arms['shipping']['launches']
+    if not all(any(key.split('/')[0] == 'float32' and n
+                   for key, n in ref[k].items())
+               for k in ('k1', 'k2', 'k3', 'k4')):
+        failed.append('reference arm: not every kernel in float32')
+    if any(k.split('/')[0] != 'bfloat16' for c in ship.values() for k in c) \
+            or not ship['k1']:
+        failed.append('shipping arm: not bfloat16')
+    if failed:
+        raise AssertionError(f'{failed}: {json.dumps(out)}')
+    return out
+
+
+def check_profilers(torch):
+    """``step_profile`` at the shipping path's top phase: every stage
+    finite, the critic update with the GP slower than without it (wall
+    and device); ``op_trace`` at phases 3 and 5: the categories sum to the
+    total, and the layout table is not empty."""
+    from neuron_gan_tpu_torch.tools import op_trace, step_profile
+    rows, _ = _quiet(step_profile.main, ['--reps', '5'])
+    stages = {r['stage']: r for r in rows[1:]}
+    failed = [name for name, r in stages.items()
+              if not (np.isfinite(r['value']) and r['wall_ms'] > 0
+                      and r['device_ms'] > 0)]
+    gp, no_gp = stages['critic_update_with_gp'], stages['critic_update_no_gp']
+    if not (gp['wall_ms'] > no_gp['wall_ms']
+            and gp['device_ms'] > no_gp['device_ms']):
+        failed.append('the GP costs nothing')
+    traces = {}
+    for phase in (3, 5):
+        tr, _ = _quiet(op_trace.main, ['--phase', str(phase)])
+        cats = sum(tr['by_category_ms_per_step'].values())
+        if not (tr['total_ms_per_step'] > 0 and abs(
+                cats - tr['total_ms_per_step']) <= 1e-9 * cats):
+            failed.append(f'op_trace phase {phase}: categories {cats}')
+        if not (tr['layout_kernels'] and tr['copies']):
+            failed.append(f'op_trace phase {phase}: no layout kernel or copy')
+        traces[phase] = {k: tr[k] for k in (
+            'resolution', 'wall_ms_per_step', 'total_ms_per_step',
+            'by_category_ms_per_step', 'calls_per_step_by_category')}
+        traces[phase].update(top=tr['top'][:8],
+                             layout_kernels=tr['layout_kernels'][:8],
+                             copies=tr['copies'][:6])
+    out = {'step_profile': rows, 'op_trace': traces}
+    if failed:
+        raise AssertionError(f'{failed}: {json.dumps(out)}')
+    return out
+
+
+def check_convert(ckpt, work):
+    """``convert_checkpoint`` .npz -> .pth -> .npz on the cli phase's
+    checkpoint: everything the reference format carries (G's and D's state
+    dicts at the checkpoint's growth: the blocks, the stem and head, the
+    current and higher levels' rgb layers) bit for bit."""
+    import os
+    from neuron_gan_tpu_torch.checkpoint import (
+        export_discriminator_state, export_generator_state, load_pytree_npz)
+    from neuron_gan_tpu_torch.models import GrowthState, PGConfig
+    from neuron_gan_tpu_torch.tools import convert_checkpoint
+    pth = os.path.join(work, 'cli.pth')
+    back = os.path.join(work, 'cli_round_trip.npz')
+    _quiet(convert_checkpoint.main, [ckpt, pth])
+    _quiet(convert_checkpoint.main, [pth, back])
+    orig, meta = load_pytree_npz(ckpt)
+    got, _ = load_pytree_npz(back)
+    cfg = PGConfig(n_gen_features=tuple(meta['N_gen_features']),
+                   n_dis_features=tuple(meta['N_dis_features']),
+                   latent_dim=int(meta['latent_dim']),
+                   image_size_init=int(meta['image_size_init']))
+    growth = GrowthState(cfg)
+    growth.set_resolution(int(meta['image_size']), float(meta['alpha']))
+    differ, carried = {}, {}
+    for net, export in (('g_params', export_generator_state),
+                        ('d_params', export_discriminator_state)):
+        want = export(orig['state'][net], cfg, growth)
+        have = export(got['state'][net], cfg, growth)
+        carried[net] = len(want)
+        differ[net] = sorted(set(want) ^ set(have)) + [
+            k for k in want if k in have and (
+                want[k].shape != have[k].shape
+                or want[k].tobytes() != have[k].tobytes())]
+    out = {'pth_bytes': os.path.getsize(pth), 'meta': meta,
+           'carried_tensors': carried, 'differ': differ}
+    if any(differ.values()):
+        raise AssertionError(f'round trip differs: {json.dumps(out)}')
+    return out
+
+
+def check_native(seed, work):
+    """The native loader built with g++ and taken by the dataset
+    (``_stats_impl == 'native'``) on 16 synthetic 512^2 frames: its noise
+    statistics against numpy's (thresholds by the numpy DP, then the mean
+    and the two-pass std of the selected pixels) within 1e-12, and the
+    stack against the numpy path's bit for bit."""
+    import os
+    from neuron_gan_tpu_torch.data import neuron_dataset as nd
+    from neuron_gan_tpu_torch.runtime import build, native
+    data = write_dataset(os.path.join(work, 'native_data'), seed)
+    t0 = time.perf_counter()
+    ds = nd.NeuronDataset(data, image_size=512, seed=seed)
+    secs = time.perf_counter() - t0
+    with mock.patch.object(native, 'native_available', lambda: False):
+        t0 = time.perf_counter()
+        ds_np = nd.NeuronDataset(data, image_size=512, seed=seed)
+        secs_np = time.perf_counter() - t0
+        err = 0.0
+        for i, f in enumerate(ds.filenames):
+            arr = nd.decode_image(f)
+            t = nd.threshold_multiotsu(arr)
+            sel = arr[(arr > 0) & (arr < t[0])]
+            err = max(err, abs(sel.mean() - ds.images_noise_mean[i]),
+                      abs(sel.std() - ds.images_noise_std[i]))
+    out = {'stats_impl': ds._stats_impl, 'library': build.library_path().name,
+           'max_abs_err': err, 'stack_equal': bool(np.array_equal(
+               ds.images, ds_np.images)),
+           'build_and_load_seconds': secs, 'numpy_load_seconds': secs_np}
+    if not (ds._stats_impl == 'native' and err <= 1e-12 and out['stack_equal']):
+        raise AssertionError(f'native loader: {json.dumps(out)}')
+    return out
+
+
+def check_tools(torch, seed, work, cli_ckpt):
+    """Phase tools (it opens profiler sessions: after every training
+    phase)."""
+    t0 = time.perf_counter()
+    out = {'phase': 'tools', 'nvidia_smi': nvidia_smi_line(),
+           'stacked_ab': check_ab(torch, seed, work)}
+    out.update(check_profilers(torch))
+    out['convert_checkpoint'] = check_convert(cli_ckpt, work)
+    out['native'] = check_native(seed, work)
+    out['seconds'] = time.perf_counter() - t0
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 6: kernel path against the plain path on one 512^2 step
 # ---------------------------------------------------------------------------
 
@@ -2064,6 +2338,9 @@ REL_L2_BOUND = {'unpacked': {'D': 2e-3, 'G': 3e-3},
                 'packed': {'D': 2e-3, 'G': 4e-3},
                 'mixed': {'D': 0.075, 'G': 0.5},
                 'shipping': {'D': 0.075, 'G': 0.5}}
+# the stretch path (the shipping step one level deeper, 1024^2) is held
+# to the shipping path's bound
+REL_L2_BOUND['stretch'] = REL_L2_BOUND['shipping']
 
 
 def _plain(cfg):
@@ -2264,8 +2541,6 @@ def main():
               file=sys.stderr)
         return 2
     from neuron_gan_tpu_torch.runtime import kernels
-    import neuron_gan_tpu_torch.ops.lrelu_pixel_norm as lpn
-    import neuron_gan_tpu_torch.ops.packed_conv_lrelu_pn as pcl
 
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
@@ -2294,41 +2569,59 @@ def main():
                                      'count': torch.cuda.device_count()}})
         return 0
 
+    import tempfile
+    with tempfile.TemporaryDirectory() as work:
+        return smoke(torch, args.seed, smi, t_start, work)
+
+
+def smoke(torch, seed, smi, t_start, work):
+    """Every phase but dp_nccl, in order, on one card; ``work`` a scratch
+    directory."""
+    import neuron_gan_tpu_torch.ops.lrelu_pixel_norm as lpn
+    import neuron_gan_tpu_torch.ops.packed_conv_lrelu_pn as pcl
+
     # the main paths first: their steps/s windows run in a process in which
     # the profiler (device_ms) has not run yet
     paths = {name: make() for name, (make, _) in PATHS.items()}
     trained = {}
     for name, cfg in paths.items():
-        trained[name] = train(torch, args.seed, cfg, name)
+        trained[name] = train(torch, seed, cfg, name)
         emit(trained[name])
     # the user's entry points, still before any profiler session
-    emit(check_cli(torch, args.seed))
-    emit(check_gp_remat(torch, args.seed))
-    # the other training paths: host streaming, two ranks, legacy WGAN
-    stream = check_stream(torch, args.seed)
+    cli = check_cli(torch, seed, work)
+    emit(cli)
+    emit(check_gp_remat(torch, seed))
+    # the other training paths: host streaming, two ranks, legacy WGAN,
+    # the 1024^2 EMA run
+    stream = check_stream(torch, seed)
     emit(stream)
-    dp = check_dp(torch, args.seed)
+    dp = check_dp(torch, seed)
     emit(dp)
-    emit(check_legacy(torch, args.seed))
+    emit(check_legacy(torch, seed))
+    stretch = check_stretch(torch, seed, work)
+    emit(stretch)
 
-    epi = check_epilogue_kernels(torch, lpn, args.seed)
+    epi = check_epilogue_kernels(
+        torch, lpn, seed, more_bf16=[(tuple(e['x']), e['case'])
+                                     for e in stretch['launches_per_step']
+                                     if e['kernel'] == 'k1'])
     emit({'phase': 'kernels', 'pair': 'lrelu_pixel_norm', **epi})
-    conv = check_packed_kernels(torch, pcl, args.seed)
+    conv = check_packed_kernels(torch, pcl, seed)
     emit({'phase': 'kernels', 'pair': 'packed_conv_lrelu_pn', **conv})
-    conv16 = check_packed_kernels_bf16(torch, pcl, args.seed)
+    conv16 = check_packed_kernels_bf16(torch, pcl, seed)
     emit({'phase': 'kernels', 'pair': 'packed_conv_lrelu_pn',
           'dtype': 'bfloat16', **conv16})
-    dz = check_dz_kernel(torch, pcl, args.seed)
+    dz = check_dz_kernel(torch, pcl, seed)
     emit({'phase': 'kernels', 'kernel': 'packed_dz', **dz})
 
-    emit(check_boundaries(torch, args.seed,
-                          [paths['mixed'], paths['shipping']]))
-    raw = torch.from_numpy(np.random.default_rng(args.seed + 1).random(
+    emit(check_boundaries(torch, seed, [paths['mixed'], paths['shipping']]))
+    raw = torch.from_numpy(np.random.default_rng(seed + 1).random(
         (8, 768, 768, 1)).astype(np.float32)).to('cuda')
     for name, cfg in paths.items():
-        emit(parity(torch, args.seed, cfg,
+        emit(parity(torch, seed, cfg,
                     PATHS[name][1](cfg.n_phases - 1), raw, name))
-    emit(check_augment(torch, args.seed))
+    emit(check_augment(torch, seed))
+    emit(check_tools(torch, seed, work, cli['kept_checkpoint']))
 
     # each kernel's launches by dtype on each path; a row's launches are
     # those of the path that runs it in that dtype (float32: the packed
@@ -2352,28 +2645,33 @@ def main():
 
     # per steady 512^2 step of a path: a kernel's launches as the train
     # phase counted them, and the sum of their bounds
-    k3_bound = {(dt, tuple(e['x'])): e['bound_ms']
-                for dt, cv in (('float32', conv), ('bfloat16', conv16))
-                for e in cv['conv_by_shape']}
+    # K3's nonzero taps by (N, H, W), the same at every batch
+    k3_taps = {tuple(e['x'][1:]): e['nonzero_w'] for e in conv['conv_by_shape']}
 
     def site_bound_ms(key, dtype, shape, case):
         item = 4 if dtype == 'float32' else 2
         if key in ('k1', 'k2'):
             return epilogue_bound_ms(key, shape, item)
         if key == 'k3':
-            return k3_bound[dtype, shape]
+            return conv_bound(shape, shape[1], k3_taps[shape[1:]], item)[2]
         return dz_bound_ms(shape, item, live=case == 'live')
 
+    step_sites_of = {path: res['launches_per_steady_step']
+                     for path, res in trained.items()}
+    step_sites_of['stretch'] = stretch['launches_per_step']
+
     def per_step(path, key, dtype):
-        sites = [e for e in trained[path]['launches_per_steady_step']
+        sites = [e for e in step_sites_of[path]
                  if e['kernel'] == key and e['dtype'] == dtype]
         return {'path': path, 'launches': sum(e['n'] for e in sites),
                 'bound_ms': sum(e['n'] * site_bound_ms(
                     key, dtype, tuple(e['x']), e['case']) for e in sites)}
 
-    # the streamed run and each rank (shipping path, bfloat16)
+    # the streamed run, each rank (shipping path) and the stretch run
+    # (bfloat16)
     other_paths = {'stream': stream['runs']['streamed']['launches'],
-                 **{f'dp_{r}': n for r, n in dp['launches'].items()}}
+                   **{f'dp_{r}': n for r, n in dp['launches'].items()},
+                   'stretch': stretch['launches']}
 
     def row(name, src, replaces, key, dtype, err, ms, plain_ms, bound_ms,
             bound_by, library_ms, **extra):
@@ -2385,7 +2683,8 @@ def main():
         if key in ('k1', 'k2') and dtype == 'float32':
             steps.append(per_step('unpacked', key, dtype))
         if dtype == 'bfloat16':
-            steps.append(per_step('shipping', key, dtype))
+            steps += [per_step('shipping', key, dtype),
+                      per_step('stretch', key, dtype)]
         return {'name': name, 'route': 'cuda', 'dtype': dtype,
                 'source': f'neuron_gan_tpu_torch/csrc/{src}.cu',
                 'replaces': f'neuron_gan_tpu/ops/{replaces}',

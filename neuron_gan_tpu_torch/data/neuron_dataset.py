@@ -13,9 +13,10 @@ Reference pipeline (data/NeuronDataset.py:45-167): per image —
   5. convert to float in [0, 1] (ToTensor).
 
 The processed stack is one (N, P, P, 1) float32 array on the host, which
-the training CLI copies to the device once.  The noise statistics are the
-numpy ones (a second pass for the std): the port has no native
-preprocessing library.
+the training CLI copies to the device once.  The Otsu thresholds and the
+noise statistics go to the native library (``runtime/native.py``) where
+g++ is, else numpy; both give numpy's numbers (the std by two passes,
+never the moment identity; ``runtime/native.py``).
 """
 
 import json
@@ -23,6 +24,7 @@ import os
 
 import numpy as np
 
+from neuron_gan_tpu_torch.runtime import native
 from neuron_gan_tpu_torch.utils.png import png_size, read_png
 
 
@@ -73,6 +75,7 @@ def threshold_multiotsu(image: np.ndarray, classes: int = 4, nbins: int = 256):
 
     Maximizes sum over classes of w_k * mu_k^2 (equivalently between-class
     variance) where bins partition into ``classes`` contiguous groups.
+    Dispatches to the native library where it is available.
     """
     vals = image.ravel()
     vmin, vmax = vals.min(), vals.max()
@@ -88,11 +91,14 @@ def threshold_multiotsu(image: np.ndarray, classes: int = 4, nbins: int = 256):
         hist, edges = np.histogram(vals, bins=nbins, range=(vmin, vmax))
         hist = hist.astype(np.float64)
         centers = (edges[:-1] + edges[1:]) / 2.0
+    if native.native_available():
+        return native.multi_otsu_hist(hist, centers, classes)
     return _multiotsu_from_hist(hist, centers, classes)
 
 
 def _multiotsu_from_hist(hist, centers, classes):
-    """numpy DP over a prepared histogram."""
+    """numpy DP over a prepared histogram (also the native library's
+    stand-in where it has no partition)."""
     n = centers.size
     p = hist / hist.sum()
     # cumulative moments: P[i..j] and S[i..j] via prefix sums
@@ -192,6 +198,8 @@ class NeuronDataset:
         self.augmentations = augmentations
         self.im_translation = im_translation
         self.seed = seed
+        # noise-statistics backend, decided once per dataset build
+        self._stats_impl = 'native' if native.native_available() else 'numpy'
 
         self.filenames = sorted(
             os.path.join(directory, f) for f in os.listdir(directory)
@@ -233,13 +241,18 @@ class NeuronDataset:
         if arr.ndim == 3:  # collapse to single channel like the 1-color config
             arr = arr[..., 0]
         thresh = threshold_multiotsu(arr, classes=4)
-        is_noise = np.logical_and(arr > 0, arr < thresh[0])
-        noise_vals = arr[is_noise]
         # two passes: the std over (v - mean)^2, never the moment identity
-        self.images_noise_mean[index] = (noise_vals.mean()
-                                         if noise_vals.size else 0.0)
-        self.images_noise_std[index] = (noise_vals.std()
-                                        if noise_vals.size else 0.0)
+        if self._stats_impl == 'native' and arr.dtype == np.uint8:
+            (self.images_noise_mean[index],
+             self.images_noise_std[index]) = native.noise_stats_u8(
+                 arr, float(thresh[0]))
+        else:
+            is_noise = np.logical_and(arr > 0, arr < thresh[0])
+            noise_vals = arr[is_noise]
+            self.images_noise_mean[index] = (noise_vals.mean()
+                                             if noise_vals.size else 0.0)
+            self.images_noise_std[index] = (noise_vals.std()
+                                            if noise_vals.size else 0.0)
 
         # reference border pad, then center in the common frame
         h, w = arr.shape
@@ -263,8 +276,10 @@ class NeuronDataset:
         entries = [(os.path.basename(f), os.path.getmtime(f), os.path.getsize(f))
                    for f in self.filenames]
         # frame = max image dim + 2*pad, so it pins the padded geometry;
-        # 'stats' names the noise-statistics backend (the JAX package's
-        # native one differs from numpy's at ~1e-15)
+        # 'stats' names the noise statistics' numbers: the port's native
+        # library gives numpy's (runtime/native.py), so it is 'numpy'
+        # either way (the JAX package's native library, whose std differs
+        # at ~1e-15, writes 'native')
         return {'frame': frame, 'seed': self.seed, 'files': entries,
                 'stats': 'numpy'}
 

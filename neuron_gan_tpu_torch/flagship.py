@@ -31,7 +31,9 @@ float32 with TF32 off (precision 'highest'):
 No configuration is a default anywhere until the card has measured it
 (ROADMAP).  The kernel launch sites of one steady 512^2 step of each
 execution, by whole shape (``steady_step_sites``, ``epilogue_shapes``),
-are what chip_smoke.py and the kernel variant scripts check and time.
+are what chip_smoke.py and the kernel variant scripts check and time;
+``step_sites`` gives them for any configuration, phase and batch (the
+1024^2 run of tools/stretch_1024.py).
 """
 
 import collections
@@ -39,6 +41,8 @@ import collections
 import torch
 
 from neuron_gan_tpu_torch.models import PGConfig
+from neuron_gan_tpu_torch.models.pggan import (
+    _want_packed, _want_packed8_d, _want_packed8_g)
 from neuron_gan_tpu_torch.train_step import ChunkSpec
 
 
@@ -98,72 +102,107 @@ PATHS = {'unpacked': (flagship_config, flagship_chunk_spec),
          'shipping': (flagship_shipping_config, flagship_shipping_chunk_spec)}
 
 
-# every LReLU + PixelNorm epilogue input of the unpacked flagship path at
-# batch 8: G blocks 0-4, then D blocks 0-4
-G_SHAPES = [(8, 64, 32, 32), (8, 32, 64, 64), (8, 32, 128, 128),
-            (8, 16, 256, 256), (8, 16, 512, 512)]
-D_SHAPES = [(8, 16, 256, 256), (8, 32, 128, 128), (8, 32, 64, 64),
-            (8, 64, 32, 32), (8, 128, 16, 16)]
-# every packed conv2 (its input and output) of the packed and mixed paths
-# at batch 8: G blocks 1-4, then D blocks 0-2; the packed conv1 epilogues
-# (K1 at 4 groups) take the same shapes
-PACKED_SHAPES = [(8, 128, 32, 32), (8, 128, 64, 64), (8, 64, 128, 128),
-                 (8, 64, 256, 256), (8, 64, 128, 128), (8, 128, 64, 64),
-                 (8, 128, 32, 32)]
-# the unpacked epilogues of the packed, mixed and shipping paths: G block
-# 0, D blocks 3 and 4
-UNPACKED_OF_PACKED = [(8, 64, 32, 32), (8, 64, 32, 32), (8, 128, 16, 16)]
-# the shipping path's 2x4 blocks (both epilogues: K1 at 8 groups): G
-# blocks 3 and 4, then D block 0; its 2x2 blocks are PACKED_SHAPES' G
-# blocks 1-2 and D blocks 1-2
-PACKED8_SHAPES = [(8, 128, 128, 64), (8, 128, 256, 128), (8, 128, 128, 64)]
+# G's forward alone, no backward, no D: a sample grid
+SAMPLE_PASSES = ((1, 0), (0, 0))
+
+
+def step_passes(gp_remat=False, gp_reuse_fakes=False):
+    """((G forwards, G backwards), (D forwards, D backwards)) of one batch
+    step: G runs 3 forwards (the critic loss's fakes, the GP's fakes, the
+    generator step), 2 under ``gp_reuse_fakes`` (the GP takes the critic
+    loss's fakes), and 1 backward; D runs 4 forwards (real, fake, the GP's
+    interpolate, the generator step) and 5 backwards (real, fake, the GP's
+    inner pass, the GP's outer pass back through the interpolate's
+    forward, the generator step).  Under ``gp_remat`` D runs the
+    interpolate's forward three times: checkpointed (nothing saved), then
+    recomputed in each of the GP's two backward passes (the outer pass
+    unpacks the inner one's saved tensors, which the checkpoint recomputes
+    again)."""
+    return (2 if gp_reuse_fakes else 3, 1), (6 if gp_remat else 4, 5)
+
+
+def block_layouts(cfg, phase):
+    """The layout of each block a step of ``cfg`` at ``phase`` runs, G's
+    then D's: 'unpacked' (two K1 at 1 group), 'packed' (the 2x2 layout: a
+    K1 at 4 groups and a K3) or 'p8' (the 2x4 layout: two K1 at 8
+    groups), by the JAX package's routing rules (models/pggan.py's
+    predicates): a G block enters the 2x4 layout natively at a fused
+    up-conv, a D block stays in it where its input is 2x4, and a 2x2 block
+    of 64 packed channels runs its tail in it."""
+    f_g, f_d, n = cfg.n_gen_features, cfg.n_dis_features, cfg.n_layers_max
+
+    def layout(native, res, feat):
+        if not _want_packed(cfg, res):
+            return 'unpacked'
+        tail8 = (cfg.packed_lanes == 128 and 4 * feat == 64
+                 and (res // 2) % 2 == 0)
+        return 'p8' if native or tail8 else 'packed'
+
+    g = [layout(_want_packed8_g(cfg, cfg.resolution(i + 1), f_g[i + 1]),
+                cfg.resolution(i + 1), f_g[i + 1]) for i in range(phase)]
+    d, res = [], cfg.resolution(phase)
+    in_p8 = _want_packed8_d(cfg, res, f_d[n - 1 - phase])
+    for i in range(n - 1 - phase, n - 1):
+        res //= 2
+        in_p8 = in_p8 and _want_packed8_d(cfg, res, f_d[i + 1])
+        d.append(layout(in_p8, res, f_d[i + 1]))
+    return g, d
+
+
+def step_sites(cfg, phase, batch, passes=None):
+    """Every kernel launch of one batch step of ``cfg`` at ``phase`` with
+    ``batch`` rows (or of other ``passes``, e.g. ``SAMPLE_PASSES``), by
+    whole shape: {(kernel, shape, case): launches}, K1/K2 at x's shape
+    with case = the grouping, K3 at y's shape with case None, K4 at y's
+    shape with case 'live' or 'absent' (r's cotangent: live in D's GP
+    outer pass alone).  Each block launches by its layout
+    (``block_layouts``): an unpacked block two K1 at 1 group, a 2x2 one a
+    K1 at 4 groups and a K3, a 2x4 one two K1 at 8 groups; each K1
+    forward has its K2 in a backward, each K3 its K4.  A G block of
+    output resolution r and f features, or a D block at r (after its
+    pool) of f output features, runs at (batch, f, r, r) unpacked,
+    (batch, 4f, r/2, r/2) in the 2x2 layout and (batch, 8f, r/2, r/4) in
+    the 2x4 one."""
+    (gf, gb), (df, db) = passes or step_passes()
+    g, d = block_layouts(cfg, phase)
+    sites = collections.Counter()
+
+    def block(lay, feat, res, fwd, bwd, live):
+        if lay == 'unpacked':
+            shape, n, groups = (batch, feat, res, res), 2, 1
+        elif lay == 'p8':
+            shape, n, groups = (batch, 8 * feat, res // 2, res // 4), 2, 8
+        else:
+            shape, n, groups = (batch, 4 * feat, res // 2, res // 2), 1, 4
+        sites['k1', shape, groups] += n * fwd
+        sites['k2', shape, groups] += n * bwd
+        if lay == 'packed':
+            sites['k3', shape, None] += fwd
+            sites['k4', shape, 'absent'] += bwd - live
+            sites['k4', shape, 'live'] += live
+
+    for i, lay in enumerate(g):
+        block(lay, cfg.n_gen_features[i + 1], cfg.resolution(i + 1), gf, gb, 0)
+    res, n = cfg.resolution(phase), cfg.n_layers_max
+    for lay, i in zip(d, range(n - 1 - phase, n - 1)):
+        res //= 2
+        block(lay, cfg.n_dis_features[i + 1], res, df, db, min(db, 1))
+    return {k: v for k, v in sites.items() if v}
 
 
 def steady_step_sites(path):
-    """Every kernel launch of one steady 512^2 step of a path ('unpacked',
-    'packed', 'mixed' or 'shipping'), as {(kernel, shape, case):
-    launches}: K1/K2 at x's shape with case = the grouping, K3 at y's
-    shape with case None, K4 at y's shape with case 'live' or 'absent'
-    (r's cotangent).  G runs 3 forwards and 1 backward a step, D 4 and 5
-    (chip_smoke.py's ``expected_launches``); an unpacked block has two K1
-    epilogues, a 2x2 one a K1 at 4 groups and a K3, a 2x4 one two K1 at 8
-    groups; a K4 runs in each backward of a K3, with a live ct_r in D's
-    GP outer pass alone."""
-    sites = collections.Counter()
+    """``step_sites`` of one steady 512^2 step of a path ('unpacked',
+    'packed', 'mixed' or 'shipping') at batch 8."""
+    cfg = PATHS[path][0]()
+    return step_sites(cfg, cfg.n_phases - 1, 8)
 
-    def epilogues(shape, n_groups, fwd, bwd):
-        sites['k1', shape, n_groups] += 2 * fwd
-        sites['k2', shape, n_groups] += 2 * bwd
 
-    def packed(y, fwd, bwd, live):
-        sites['k1', y, 4] += fwd
-        sites['k2', y, 4] += bwd
-        sites['k3', y, None] += fwd
-        sites['k4', y, 'absent'] += bwd - live
-        if live:
-            sites['k4', y, 'live'] += live
-
-    if path == 'unpacked':
-        for shape in G_SHAPES:
-            epilogues(shape, 1, 3, 1)
-        for shape in D_SHAPES:
-            epilogues(shape, 1, 4, 5)
-        return dict(sites)
-    epilogues(UNPACKED_OF_PACKED[0], 1, 3, 1)
-    for shape in UNPACKED_OF_PACKED[1:]:
-        epilogues(shape, 1, 4, 5)
-    if path == 'shipping':
-        g_packed, d_packed = PACKED_SHAPES[:2], PACKED_SHAPES[5:]
-        for shape in PACKED8_SHAPES[:2]:
-            epilogues(shape, 8, 3, 1)
-        epilogues(PACKED8_SHAPES[2], 8, 4, 5)
-    else:
-        g_packed, d_packed = PACKED_SHAPES[:4], PACKED_SHAPES[4:]
-    for y in g_packed:
-        packed(y, 3, 1, 0)
-    for y in d_packed:
-        packed(y, 4, 5, 1)
-    return dict(sites)
+def site_shapes(path, kernel, case=None):
+    """The distinct shapes, sorted, at which a steady 512^2 step of a
+    path launches ``kernel`` (K1/K2: at the grouping ``case``, or at any
+    grouping)."""
+    return sorted({shape for (k, shape, c) in steady_step_sites(path)
+                   if k == kernel and case in (None, c)})
 
 
 def epilogue_shapes(dtype):

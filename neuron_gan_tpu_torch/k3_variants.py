@@ -34,12 +34,12 @@ import sys
 
 import torch
 
-from neuron_gan_tpu_torch.flagship import PACKED_SHAPES
+from neuron_gan_tpu_torch.flagship import site_shapes
 from neuron_gan_tpu_torch.ops import packed as pk
 from neuron_gan_tpu_torch.ops import packed_conv_lrelu_pn as pcl
 from neuron_gan_tpu_torch.runtime import kernels, precision_scope
 
-SHAPES = [(n, h) for _, n, h, _ in PACKED_SHAPES[:4]]  # (N = K, packed side)
+SHAPES = [(n, h) for _, n, h, _ in site_shapes('packed', 'k3')]  # (N = K, packed side)
 TOL = dict(rtol=1e-4, atol=1e-5)    # chip_smoke.PACKED_TOL
 
 _TF32_INT = '''__device__ __forceinline__ float tf32(float v) {

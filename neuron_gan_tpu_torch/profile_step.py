@@ -23,6 +23,8 @@ template instance (on the shipping path width 16 is its 8-group launches,
 the 2x4 blocks' epilogues) and the top kernels by device time; from the
 second, the top ATen ops by the device time of the kernels they launch,
 with their input shapes; and the card's nvidia-smi name and power limit.
+``warm_runner`` and ``_trace`` (at any phase) are also the capture of
+``tools/op_trace.py``.
 
 Needs a CUDA card; exits 2 without one.
 """
@@ -30,7 +32,6 @@ Needs a CUDA card; exits 2 without one.
 import dataclasses
 import json
 import re
-import subprocess
 import sys
 import time
 
@@ -39,6 +40,7 @@ import torch
 
 from neuron_gan_tpu_torch.flagship import PATHS
 from neuron_gan_tpu_torch.models import DiscriminatorPG, GeneratorPG
+from neuron_gan_tpu_torch.runtime.timing import nvidia_smi_line
 from neuron_gan_tpu_torch.train_step import init_train_state, make_epoch_runner
 
 SEED = 0
@@ -75,33 +77,49 @@ def _device_us(evt):
     return 0.0
 
 
-def _trace(run_epochs, record_shapes):
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
+def _trace(run_epochs, record_shapes, cuda=True):
+    """torch.profiler over ``run_epochs()``: CPU and CUDA activity, or the
+    CPU's alone (``cuda`` False: a run on the CPU)."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if cuda:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=acts,
                                 record_shapes=record_shapes) as prof:
         t0 = time.perf_counter()
         run_epochs()
-        torch.cuda.synchronize()
+        if cuda:
+            torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     return prof, wall_us
 
 
-def profile(name, cfg, chunk_spec, images, smi):
+def warm_runner(cfg, chunk_spec, images, phase=None):
+    """The flagship trainer from random weights (seed 0) at ``phase``
+    (default the top) on ``images``' device, after one warm-up epoch:
+    returns (epochs, steps), ``epochs(first, n=2)`` a function that runs
+    n epochs from epoch ``first``, ``steps`` the batch steps an epoch."""
+    device = images.device
+    phase = cfg.n_phases - 1 if phase is None else phase
     init = torch.Generator().manual_seed(SEED)
-    state = init_train_state(GeneratorPG(cfg, init, device='cuda'),
-                             DiscriminatorPG(cfg, init, device='cuda'))
-    spec = chunk_spec(cfg.n_phases - 1)
-    rng = torch.Generator(device='cuda').manual_seed(SEED)
+    state = init_train_state(GeneratorPG(cfg, init, device=device),
+                             DiscriminatorPG(cfg, init, device=device))
+    spec = chunk_spec(phase)
+    rng = torch.Generator(device=device).manual_seed(SEED)
     one_epoch = make_epoch_runner(cfg, spec, 1)
     one_epoch(state, images, rng, 1)                # warm-up epoch
-    torch.cuda.synchronize()
+    if device.type == 'cuda':
+        torch.cuda.synchronize()
 
-    def epochs(first):
+    def epochs(first, n=2):
         return lambda: [one_epoch(state, images, rng, e)
-                        for e in (first, first + 1)]
+                        for e in range(first, first + n)]
 
-    steps = 2 * spec.n_images // spec.batch_size
+    return epochs, spec.n_images // spec.batch_size
+
+
+def profile(name, cfg, chunk_spec, images, smi):
+    epochs, steps = warm_runner(cfg, chunk_spec, images)
+    steps *= 2
     prof, wall_us = _trace(epochs(2), record_shapes=False)
     by_kind, n_by_kind, top, launches, fills = {}, {}, [], 0, 0
     k12 = {}
@@ -133,7 +151,7 @@ def profile(name, cfg, chunk_spec, images, smi):
                   and _device_us(e) > 0), reverse=True)
     return {
         'phase': 'profile', 'config': name, 'nvidia_smi': smi,
-        'resolution': cfg.resolution(spec.phase), 'steps': steps,
+        'resolution': cfg.image_size_max, 'steps': steps,
         'wall_ms_per_step': wall_us / steps / 1e3,
         'device_ms_per_step': busy_us / steps / 1e3 if busy_us else None,
         'device_idle_share': 1 - busy_us / wall_us if busy_us else None,
@@ -159,9 +177,7 @@ def main():
     if not torch.cuda.is_available():
         print('profile_step: no CUDA device', file=sys.stderr)
         return 2
-    smi = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    smi = nvidia_smi_line()
     images = torch.from_numpy(np.random.default_rng(SEED).random(
         (16, 768, 768, 1)).astype(np.float32)).to('cuda')
     runs = []

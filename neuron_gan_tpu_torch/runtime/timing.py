@@ -1,6 +1,8 @@
-"""Device time of a function's kernels on the GPU, for the design and smoke
-scripts (chip_smoke.py, k4_variants.py)."""
+"""Device time of a function's kernels on the GPU, and the card's name and
+power limit, for the design, profiling and smoke scripts (chip_smoke.py,
+k4_variants.py, tools/)."""
 
+import subprocess
 import time
 
 import torch
@@ -62,3 +64,17 @@ def device_ms(fn, iters=10, warmup=2):
             return us / iters / 1e3
     raise RuntimeError(f'torch.profiler saw {flushes} of {iters} flushes '
                        f'and {us} us of kernels: {seen}')
+
+
+def nvidia_smi_lines():
+    """Every card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them."""
+    out = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()
+
+
+def nvidia_smi_line():
+    """The first card's line of ``nvidia_smi_lines``."""
+    return nvidia_smi_lines()[0]

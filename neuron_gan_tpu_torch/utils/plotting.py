@@ -207,3 +207,72 @@ def plot_grad_norm(gen_grads, dis_grads, filename=None):
     else:
         fig.savefig(filename)
         plt.close(fig)
+
+
+def n_params(tree):
+    """The number of parameters of an nn.Module, or of a nested dict/list
+    of arrays (a JAX-layout parameter tree)."""
+    if isinstance(tree, torch.nn.Module):
+        return sum(p.numel() for p in tree.parameters())
+    if isinstance(tree, dict):
+        return sum(n_params(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(n_params(v) for v in tree)
+    return int(np.prod(np.shape(tree)))
+
+
+def plot_dataset(dataset, resolutions, filename_prefix='Dataset',
+                 directory=None, augment=False, seed=0):
+    """Save the dataset grid at several resolutions (reference
+    data/NeuronDataset.py:209-220): crop, renormalisation, the augmentation
+    when ``augment`` (its draws from a CPU generator seeded with ``seed``),
+    resize to each resolution, nearest-upsampled back to the largest size
+    for tiles of one size.  Returns the files written."""
+    from neuron_gan_tpu_torch.data.augment import (
+        AugmentSpec, augment_batch, draw_augment)
+    if directory is None:
+        from neuron_gan_tpu_torch.configs import config
+        directory = config.images_dir
+    os.makedirs(directory, exist_ok=True)
+    size_max = dataset.image_size_max
+    stack = torch.from_numpy(np.asarray(dataset.images))
+    out_files = []
+    for res in resolutions:
+        spec = AugmentSpec(crop_size=size_max, out_size=int(res),
+                           translation=dataset.im_translation, augment=augment)
+        draws = draw_augment(torch.Generator().manual_seed(seed), len(stack),
+                             stack.shape[1], spec)
+        with precision_scope('highest'):
+            images = augment_batch(stack, draws, spec)
+        if images.shape[-1] != size_max:
+            images = resize_nearest(images, size_max)
+        path = os.path.join(directory,
+                            '{}_{}x{}.png'.format(filename_prefix, res, res))
+        save_image_grid(images.permute(0, 2, 3, 1).numpy(), path, nrow=4,
+                        normalize=True)
+        out_files.append(path)
+    return out_files
+
+
+def plot_image(image_hwc):
+    """Show one image with a colorbar (reference utils.py:550-554)."""
+    plt = pyplot_or_skip('image')
+    if plt is None:
+        return
+    plt.clf()
+    arr = np.asarray(image_hwc)
+    if arr.ndim == 3 and arr.shape[-1] == 1:
+        arr = arr[..., 0]
+    plt.imshow(arr, cmap='gray')
+    plt.colorbar()
+
+
+def plot_sample(dataset, ind=None):
+    """Show a random (augment-free) dataset sample (reference
+    utils.py:558-564)."""
+    n = len(dataset)
+    if ind is None:
+        ind = int(np.random.randint(0, n))
+    elif ind > n - 1:
+        raise ValueError('ind must be smaller than {}'.format(n))
+    plot_image(dataset.images[ind])
