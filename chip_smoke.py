@@ -60,6 +60,20 @@ Phases, each printing one JSON line:
               DP_STATS_BOUND, three planted faults outside, K1-K4 launched
               on each rank (``dp_step_parity``); then the train CLI with
               mesh_shape={'data': 1} under NCCL (``check_dp``);
+   tp         the 'model' axis: a grid of one data row and two model ranks
+              sharing the card over gloo, each holding its slices of the
+              weights and Adam moments (``parallel.shard_state``), two
+              shipping 512^2 steps on all 8 rows at the flagship lr: each
+              slice's reduced gradient before Adam (both steps) and the
+              slices after them against the 1-process steps within the
+              shipping parity bound, the stats within DP_STATS_BOUND,
+              replicated leaves equal bit for bit on every rank, three
+              planted faults outside (the gradient without its / M; model
+              rank 1 stepping with model rank 0's slice; D's working copy
+              not refreshed after the critic update), K1-K4 launched on
+              each rank exactly as on one process (``tp_step_parity``);
+              then the train CLI with mesh_shape={'data': 1, 'model': 1}
+              under NCCL (``check_tp``);
    legacy     the train CLI under wgan=True at the config_ex geometry,
               epochs 1-4 then resumed to 6: finite stats, the critic within
               +-0.01, family 'wgan', a bit-exact resume, no ported kernel
@@ -125,8 +139,8 @@ Phases, each printing one JSON line:
 
 Then the kernel table (one JSON line: a float32 and a bfloat16 row for each
 kernel, each with its launches per steady 512^2 step, as counted, and the
-sum of their bounds, and its launches on the stream, dp and stretch
-phases' paths (and the stretch path's per step);
+sum of their bounds, and its launches on the stream, dp, tp and
+stretch phases' paths (and the stretch path's per step);
 K4's with every shape's times), the card's nvidia-smi
 line, and last ``{"ok": true, "device":
 {...}}``.  Any failed check raises and the script
@@ -136,12 +150,21 @@ With ``--ranks N`` it runs, after env and build, only this phase, on N
 cards, and then prints every card's nvidia-smi line and the same last line:
 
    dp_nccl    N ranks over NCCL, rank r on cuda:r: the ``dp`` phase's batch
-              step, its bounds and planted faults; then the train CLI's
-              session under mesh_shape={'data': N} through every phase to
-              epoch 16 with the similarity loss on: the ranks' states and
-              stats equal bit for bit, rank 0's checkpoint finite, K1-K4 on
-              every rank, the parameters within the shipping parity bound
-              of a 1-process session (``check_dp_nccl``).
+              step, its bounds and planted faults, and for an even N the
+              ``tp`` phase's parity (one step) on a grid of N/2 data rows
+              and 2 model ranks (all_gather_into_tensor on the model
+              groups);
+              over each a steady window's steps/s and collective ms a
+              step, beside one process's steps/s; then the train CLI's
+              sessions under mesh_shape={'data': N} and, for an even N,
+              {'data': N/2, 'model': 2}, through every phase to epoch 16
+              with the similarity loss on: the ranks' stats equal bit for
+              bit, and their states (the grid: replicated leaves, and the
+              slices of each model rank), rank 0's checkpoint finite,
+              K1-K4 on every rank, the parameters (the grid's as gathered
+              into its checkpoint) within the shipping parity bound of a
+              1-process session; one process resumes the grid's
+              checkpoint (``check_dp_nccl``).
 """
 
 import argparse
@@ -1584,15 +1607,12 @@ def _dp_rank(rank, world_size, init_method, seed, arms, backend, out_dir):
     import os
     import torch
     from neuron_gan_tpu_torch.models import DiscriminatorPG, GeneratorPG
-    from neuron_gan_tpu_torch.parallel import DataParallel, take_rows
+    from neuron_gan_tpu_torch.parallel import Grid, take_rows
     from neuron_gan_tpu_torch.train_step import (
         draw_batch, init_train_state, make_batch_step)
-    if backend == 'gloo':
-        torch.distributed.init_process_group(
-            'gloo', init_method=init_method, world_size=world_size, rank=rank)
-        dp = DataParallel(rank, world_size, 'cuda:0')
-    else:
-        dp = DataParallel.init(rank, world_size, init_method, f'cuda:{rank}')
+    dp = Grid.init(rank, world_size, init_method,
+                   'cuda:0' if backend == 'gloo' else f'cuda:{rank}',
+                   backend=backend)
     device = dp.device
     make, chunk = PATHS['shipping']
     cfg = make()
@@ -1608,14 +1628,14 @@ def _dp_rank(rank, world_size, init_method, seed, arms, backend, out_dir):
             rows = (lo, hi)
             patches = []
             if arm == 'fault_unweighted':
-                reduce = DataParallel.reduce_grads
+                reduce = Grid.reduce_grads
                 patches.append(mock.patch.object(
-                    DataParallel, 'reduce_grads',
+                    Grid, 'reduce_grads',
                     lambda self, params, weight: reduce(self, params, 1.0)))
             if arm == 'fault_other_rows':
                 # this rank's images with the next rank's draws
-                rows = DataParallel((rank + 1) % world_size, world_size,
-                                    device).rows(8)
+                rows = Grid((rank + 1) % world_size, world_size,
+                            device).rows(8)
             init = torch.Generator().manual_seed(seed)
             state = init_train_state(GeneratorPG(cfg, init, device=device),
                                      DiscriminatorPG(cfg, init, device=device))
@@ -1635,6 +1655,10 @@ def _dp_rank(rank, world_size, init_method, seed, arms, backend, out_dir):
                         'G': [p.grad.cpu() for p in state.g.parameters()],
                         'stats': stats.cpu(), 'stats_local': local,
                         'launches': read_counters(), 'rows': [lo, hi]}
+            if arm == 'dp' and backend == 'nccl':
+                rows_draws = take_rows(draws, lo, hi)
+                out['timing'] = steady_rate(torch, lambda: step(
+                    state, raw[lo:hi], rows_draws, None, spec.lr0, 0.0, 8))
         dp.barrier()
     finally:
         torch.distributed.destroy_process_group()
@@ -1716,6 +1740,8 @@ def dp_step_parity(torch, seed, world_size, backend):
               'spawned_seconds': round(secs, 3),
               'launches': {f'rank{r}': rk['dp']['launches']
                            for r, rk in enumerate(ranks)}}
+    if backend == 'nccl':
+        result['timing'] = [rk['timing'] for rk in ranks]
     failed = []
     if not within(dists['dp']) or not dists['dp']['ranks_equal']:
         failed.append(f'{world_size} ranks outside the bound of the '
@@ -1741,33 +1767,339 @@ def check_dp(torch, seed):
         raise AssertionError(f'{failed}: {json.dumps(result)}')
 
     # the CLI's own data-parallel path: one rank, NCCL, a process it spawns
+    result['cli'] = cli_one_nccl_rank(seed, {'data': 1}, 'smkd')
+    return result
+
+
+def cli_one_nccl_rank(seed, mesh, run_id):
+    """The train CLI (``python -m``, a process of its own) under ``mesh``,
+    a grid of one rank, for 4 epochs: it must spawn its one rank over NCCL
+    on cuda:0, say so on its rank line and write a finite checkpoint at
+    epoch 4."""
     import os
     import tempfile
     from neuron_gan_tpu_torch.checkpoint import load_pytree_npz
     with tempfile.TemporaryDirectory() as tmp:
         data = write_dataset(os.path.join(tmp, 'data'), seed)
-        cfg_path = os.path.join(tmp, 'dp_config.py')
+        cfg_path = os.path.join(tmp, f'{run_id}.py')
         root = os.path.join(tmp, 'run')
-        write_cli_config(cfg_path, root, data, seed, ID='smkd',
-                         mesh_shape={'data': 1}, N_epochs_session=4)
+        write_cli_config(cfg_path, root, data, seed, ID=run_id,
+                         mesh_shape=mesh, N_epochs_session=4)
         t0 = time.perf_counter()
         run = subprocess.run(
             [sys.executable, '-m', 'neuron_gan_tpu_torch.train', '--configs',
              cfg_path], capture_output=True, text=True, timeout=600)
         cli_secs = time.perf_counter() - t0
         said = [ln for ln in run.stdout.splitlines()
-                if ln.startswith('data parallel:')]
-        if run.returncode or said != ['data parallel: 1 ranks, nccl on cuda:0']:
-            raise AssertionError(f'train CLI under mesh_shape: rc '
+                if ln.startswith('mesh:')]
+        if run.returncode or said != ['mesh: data 1 x model 1, nccl on cuda:0']:
+            raise AssertionError(f'train CLI under mesh_shape={mesh}: rc '
                                  f'{run.returncode}, {said}\n'
                                  f'{run.stdout[-3000:]}\n{run.stderr[-3000:]}')
         payload, meta = load_pytree_npz(os.path.join(root, 'weights',
-                                                     'GenDisc_smkd.npz'))
+                                                     f'GenDisc_{run_id}.npz'))
     assert meta['epoch'] == 4, meta
     for name, series in payload['series'].items():
         assert np.isfinite(series).all(), name
-    result['cli'] = {'seconds': round(cli_secs, 3), 'said': said[0],
-                     'checkpoint_epoch': meta['epoch']}
+    return {'mesh': mesh, 'seconds': round(cli_secs, 3), 'said': said[0],
+            'checkpoint_epoch': meta['epoch']}
+
+
+def collective_timer(torch):
+    """Patches of torch.distributed's all_reduce and all_gather_into_tensor
+    that time each call on the current stream with CUDA events (from the
+    end of the work queued before it to the end of the collective, waits
+    for other ranks included), and ``read()``: their summed ms."""
+    import torch.distributed as dist
+    events = []
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            events.append((start, end))
+            return out
+        return call
+
+    def read():
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in events)
+
+    return [mock.patch.object(dist, name, timed(getattr(dist, name)))
+            for name in ('all_reduce', 'all_gather_into_tensor')], read
+
+
+def steady_rate(torch, one_step, n_warm=2, n=10):
+    """Steps/s of ``one_step`` over ``n`` calls after ``n_warm``, ended by a
+    synchronize, and the ms a step its collectives take
+    (``collective_timer``)."""
+    import contextlib
+    for _ in range(n_warm):
+        one_step()
+    patches, read = collective_timer(torch)
+    with contextlib.ExitStack() as stack:
+        for patch in patches:
+            stack.enter_context(patch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            one_step()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    return {'steps': n, 'steps_per_s': n / secs,
+            'collective_ms_per_step': read() / n}
+
+
+# ---------------------------------------------------------------------------
+# phase tp and dp_nccl's model arm: the 'model' mesh axis
+# ---------------------------------------------------------------------------
+
+TP_ARMS = ('tp', 'fault_without_1/M', 'fault_other_slice', 'fault_stale_d')
+
+
+def tp_inputs(torch, seed, device, n_steps=2):
+    """The shipping path at 512^2: its config, chunk spec, the flagship
+    batch of 8 (768^2 frames from ``seed``) and the draws of ``n_steps``
+    batch steps."""
+    from neuron_gan_tpu_torch.train_step import draw_batch
+    make, chunk = PATHS['shipping']
+    cfg = make()
+    spec = chunk(cfg.n_phases - 1)
+    raw = torch.from_numpy(np.random.default_rng(seed + 2).random(
+        (8, 768, 768, 1)).astype(np.float32)).to(device)
+    rng = torch.Generator(device=device).manual_seed(seed)
+    return cfg, spec, raw, [draw_batch(rng, cfg, spec, 8, 768)
+                            for _ in range(n_steps)]
+
+
+def _tp_rank(rank, world_size, init_method, seed, model_size, n_steps,
+             backend, out_dir):
+    """One rank of a (data, model) grid (``parallel.Grid``; over gloo every
+    rank on cuda:0, over NCCL rank r on cuda:r): ``n_steps`` shipping 512^2
+    steps at the flagship lr of each arm of TP_ARMS on this rank's rows of
+    the batch of 8, its state sharded (``shard_state``).  Saves, per arm, each step's
+    reduced local gradients (before Adam), the local tensors after both
+    steps, both steps' stats summed over the data group and the launches;
+    over NCCL also a steady window's steps/s and collective ms."""
+    import contextlib
+    import os
+    import torch
+    from neuron_gan_tpu_torch.models import DiscriminatorPG, GeneratorPG
+    from neuron_gan_tpu_torch.parallel import Grid, shard_state, take_rows
+    from neuron_gan_tpu_torch.train_step import (
+        init_train_state, make_batch_step)
+    device = 'cuda:0' if backend == 'gloo' else f'cuda:{rank}'
+    grid = Grid.init(rank, world_size, init_method, device, model_size,
+                     backend)
+    cfg, spec, raw, draws = tp_inputs(torch, seed, device, n_steps)
+    lo, hi = grid.rows(8)
+    draws = [take_rows(d, lo, hi) for d in draws]
+    out = {'coords': (grid.data_rank, grid.model_rank), 'rows': [lo, hi]}
+
+    def slice0(t):
+        return t.reshape(model_size, -1)[0].view(
+            (t.shape[0] // model_size,) + tuple(t.shape[1:]))
+
+    try:
+        for arm in TP_ARMS:
+            init = torch.Generator().manual_seed(seed)
+            state = shard_state(init_train_state(
+                GeneratorPG(cfg, init, device=device),
+                DiscriminatorPG(cfg, init, device=device)), grid)
+            sh = state.shards
+            patches = []
+            if arm == 'fault_without_1/M':
+                # the model ranks' sum of one gradient counted M times
+                for net in (sh.g, sh.d):
+                    patches.append(mock.patch.object(
+                        net, 'reduce_grads',
+                        lambda w, f=net.reduce_grads: f(w * model_size)))
+            if arm == 'fault_other_slice':
+                # every model rank steps its slice with model rank 0's
+                # slice of the gradient
+                patches.append(mock.patch.object(grid, 'shard_of', slice0))
+            if arm == 'fault_stale_d':
+                # D's working copy never refreshed after the critic update
+                patches.append(mock.patch.object(sh.d, 'refresh',
+                                                 lambda: None))
+            step = make_batch_step(cfg, spec, grid)
+            grads, stats = [], []
+            reset_counters()
+            with contextlib.ExitStack() as stack:
+                for patch in patches:
+                    stack.enter_context(patch)
+                for d in draws:
+                    stats.append(step(state, raw[lo:hi], d, None, spec.lr0,
+                                      0.0, 8))
+                    grads.append({net: [t.grad.cpu() for t in
+                                        getattr(sh, net).local]
+                                  for net in ('d', 'g')})
+            launches = read_counters()
+            out[arm] = {'grads': grads,
+                        'D': [t.detach().cpu() for t in sh.d.local],
+                        'G': [t.detach().cpu() for t in sh.g.local],
+                        'stats': grid.all_reduce_(torch.stack(stats)).cpu(),
+                        'launches': launches}
+            if arm == 'tp' and backend == 'nccl':
+                out['timing'] = steady_rate(torch, lambda: step(
+                    state, raw[lo:hi], draws[0], None, spec.lr0, 0.0, 8))
+        grid.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.save(out, os.path.join(out_dir, f'rank{rank}.pt'))
+
+
+def tp_step_parity(torch, seed, world_size, model_size, backend):
+    """``world_size`` ranks over ``backend`` in a grid of ``world_size /
+    model_size`` data rows and ``model_size`` model ranks (``_tp_rank``):
+    shipping 512^2 steps at the flagship lr against the 1-process steps on
+    cuda:0 from the same parameters and draws, two on a grid of one data
+    row and one on more: there the sums run in another order than one
+    process's, Adam's first step turns that rounding into lr-sized moves on
+    near-zero gradients, and the bfloat16 gradient of a second step moves
+    by the bound's size (G 0.457 of 0.5 on data 2 x model 2 over NCCL).
+    Held, by relative L2 within the shipping parity bound: each rank's
+    reduced gradient of every slice before Adam (every step) against the
+    slice of the 1-process
+    gradient (Adam hides a constant factor in the parameters: only the
+    gradient before it shows one), and its slices after the steps against
+    the 1-process parameters' (largest over the ranks); both steps' stats
+    within DP_STATS_BOUND; every rank's replicated leaves (gradients and
+    parameters) equal bit for bit, and its slices equal those of every rank
+    of its model rank; three planted faults outside the bound (the
+    gradient without the ``/ M``; model rank 1 stepping its slice with
+    model rank 0's gradient; D's working copy not refreshed after the
+    critic update); each rank launching K1-K4 exactly as the 1-process
+    steps do.  Returns the readings and the failed checks."""
+    import os
+    import tempfile
+    from neuron_gan_tpu_torch.models import DiscriminatorPG, GeneratorPG
+    from neuron_gan_tpu_torch.parallel import is_sharded, spawn
+    from neuron_gan_tpu_torch.train_step import (
+        init_train_state, make_batch_step)
+    n_steps = 2 if world_size == model_size else 1
+    cfg, spec, raw, draws = tp_inputs(torch, seed, 'cuda', n_steps)
+
+    def one_process():
+        init = torch.Generator().manual_seed(seed)
+        state = init_train_state(GeneratorPG(cfg, init, device='cuda'),
+                                 DiscriminatorPG(cfg, init, device='cuda'))
+        step = make_batch_step(cfg, spec)
+        grads, stats = [], []
+        reset_counters()
+        for d in draws:
+            stats.append(step(state, raw, d, None, spec.lr0, 0.0))
+            grads.append({net: [p.grad.cpu() for p in getattr(
+                state, net).parameters()] for net in ('d', 'g')})
+        return {'grads': grads,
+                'D': [p.detach().cpu() for p in state.d.parameters()],
+                'G': [p.detach().cpu() for p in state.g.parameters()],
+                'stats': torch.stack(stats).cpu(),
+                'launches': read_counters()}
+
+    one, one_again = one_process(), one_process()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        spawn(_tp_rank, world_size, seed, model_size, n_steps, backend, tmp)
+        ranks = [torch.load(os.path.join(tmp, f'rank{r}.pt'),
+                            weights_only=False) for r in range(world_size)]
+    secs = time.perf_counter() - t0
+    sharded = {net: [is_sharded(t.shape, model_size) for t in one[net]]
+               for net in ('D', 'G')}
+
+    def mine(ts, net, m, n_model):
+        """Model rank ``m``'s part of each whole tensor of ``net``."""
+        return [t.reshape(n_model, -1)[m].view(
+            (t.shape[0] // n_model,) + tuple(t.shape[1:])) if s else t
+            for t, s in zip(ts, sharded[net])]
+
+    def dist(run, m, n_model=model_size):
+        d = {}
+        for k in range(len(draws)):
+            for net in ('D', 'G'):
+                d[f'{net}_grad_{k + 1}'] = rel_l2(
+                    run['grads'][k][net.lower()],
+                    mine(one['grads'][k][net.lower()], net, m, n_model))
+        for net in ('D', 'G'):
+            d[net] = rel_l2(run[net], mine(one[net], net, m, n_model))
+        d['stats'] = rel_l2([run['stats']], [one['stats']])
+        return d
+
+    def same_across(arm):
+        """Every rank's replicated leaves equal bit for bit, its slices
+        those of every rank of its model rank (gradients and parameters)."""
+        def tensors(rk, net):
+            run = rk[arm]
+            return [run[net]] + [g[net.lower()] for g in run['grads']]
+        for net in ('D', 'G'):
+            for rk in ranks[1:]:
+                twin = ranks[rk['coords'][1]]   # data row 0, same model rank
+                for xs, ys, zs in zip(tensors(rk, net), tensors(ranks[0], net),
+                                      tensors(twin, net)):
+                    for x, y, z, s in zip(xs, ys, zs, sharded[net]):
+                        if not torch.equal(x, z if s else y):
+                            return False
+        return True
+
+    bound = dict(REL_L2_BOUND['shipping'], stats=DP_STATS_BOUND)
+
+    def within(d):
+        return all(v <= bound[k.split('_')[0]] for k, v in d.items())
+
+    dists = {'one~one': dist(one_again, 0, 1)}
+    for arm in TP_ARMS:
+        per_rank = [dist(rk[arm], rk['coords'][1]) for rk in ranks]
+        dists[arm] = {k: max(d[k] for d in per_rank) for k in per_rank[0]}
+        dists[arm]['ranks_equal'] = same_across(arm)
+    result = {'ranks': world_size,
+              'mesh': {'data': world_size // model_size, 'model': model_size},
+              'backend': backend, 'batch': 8, 'steps': len(draws),
+              'lr': spec.lr0,
+              'coords': [list(rk['coords']) for rk in ranks],
+              'rows': [rk['rows'] for rk in ranks],
+              'sharded_leaves': {net: f'{sum(s)} of {len(s)}'
+                                 for net, s in sharded.items()},
+              'rel_l2_bound': bound, 'rel_l2_to_one_process': dists,
+              'spawned_seconds': round(secs, 3),
+              'launches_one_process': one['launches'],
+              'launches': {f'rank{r}': rk['tp']['launches']
+                           for r, rk in enumerate(ranks)}}
+    if backend == 'nccl':
+        result['timing'] = [rk['timing'] for rk in ranks]
+    failed = []
+    sound = {k: v for k, v in dists['tp'].items() if k != 'ranks_equal'}
+    if not within(sound) or not dists['tp']['ranks_equal']:
+        failed.append(f'the grid {result["mesh"]} outside the bound of the '
+                      '1-process steps, or its ranks differ')
+    for arm in TP_ARMS[1:]:
+        if within({k: v for k, v in dists[arm].items()
+                   if k != 'ranks_equal'}):
+            failed.append(f'planted fault {arm} inside the bound')
+    for r, rk in enumerate(ranks):
+        if rk['tp']['launches'] != one['launches']:
+            failed.append(f'rank {r} launched {rk["tp"]["launches"]}, one '
+                          f'process {one["launches"]}')
+        for key in ('k1', 'k2', 'k3', 'k4'):
+            if not rk['tp']['launches'][key]:
+                failed.append(f'rank {r} never launched {key}')
+    return result, failed
+
+
+def check_tp(torch, seed):
+    """The 'model' axis on the one card: a grid of one data row and two
+    model ranks sharing cuda:0 over gloo (``tp_step_parity``).  Then the
+    train CLI with mesh_shape={'data': 1, 'model': 1}: the grid's NCCL
+    path."""
+    step, failed = tp_step_parity(torch, seed, 2, 2, 'gloo')
+    result = {'phase': 'tp', 'nvidia_smi': nvidia_smi_line(),
+              'path': 'shipping', 'resolution': 512, **step}
+    if failed:
+        raise AssertionError(f'{failed}: {json.dumps(result)}')
+
+    result['cli'] = cli_one_nccl_rank(seed, {'data': 1, 'model': 1}, 'smkt')
     return result
 
 
@@ -1782,11 +2114,27 @@ def recording_chunks(stats):
     return mock.patch.object(TrainSession, '_run_chunk', recorded)
 
 
+def _local_state(state):
+    """A rank's own tensors under a model axis, as numpy: per net its local
+    parameters and both Adam moments, and which are slices."""
+    sh = state.shards
+    out = {}
+    for net, opt in (('G', state.g_opt), ('D', state.d_opt)):
+        shards = getattr(sh, net.lower())
+        out[net] = {'sharded': list(shards.sharded),
+                    'params': [t.detach().cpu().numpy() for t in shards.local],
+                    **{key: [opt.state[t][key].cpu().numpy()
+                             for t in shards.local]
+                       for key in ('exp_avg', 'exp_avg_sq')}}
+    return out
+
+
 def _cli_rank(rank, world_size, init_method, argv, out_dir):
-    """A rank of the train CLI's data-parallel session (``_train_rank``, as
-    the CLI spawns it) that keeps what ``check_dp_nccl`` compares: its final
-    state (the JAX layout), every epoch's stats and its launches.  Its
-    standard output goes to ``out_dir``."""
+    """A rank of the train CLI's parallel session (``_train_rank``, as the
+    CLI spawns it) that keeps what ``check_dp_nccl`` compares: its final
+    state (the JAX layout; under a model axis its own tensors,
+    ``_local_state``), every epoch's stats, its launches and its place in
+    the grid.  Its standard output goes to ``out_dir``."""
     import contextlib
     import os
     import torch
@@ -1797,8 +2145,12 @@ def _cli_rank(rank, world_size, init_method, argv, out_dir):
     with open(os.path.join(out_dir, f'rank{rank}.log'), 'w') as log, \
             contextlib.redirect_stdout(log), recording_chunks(stats):
         session = ttrain._train_rank(rank, world_size, init_method, argv)
-    torch.save((to_jax_state(session.state), np.concatenate(stats),
-                read_counters()), os.path.join(out_dir, f'rank{rank}.pt'))
+    state = (to_jax_state(session.state) if session.state.shards is None
+             else _local_state(session.state))
+    grid = session.grid
+    torch.save((state, np.concatenate(stats), read_counters(),
+                (grid.data_rank, grid.model_rank)),
+               os.path.join(out_dir, f'rank{rank}.pt'))
 
 
 def state_leaves(tree):
@@ -1809,34 +2161,94 @@ def state_leaves(tree):
     return [np.asarray(tree)]
 
 
+def _grid_session(torch, tmp, data, seed, mesh, run_id, **knobs):
+    """The train CLI's session under ``mesh`` (``train.main``, its ranks
+    spawned as the CLI spawns them, each through ``_cli_rank``) in
+    ``tmp/<run_id>``.  Returns the wall seconds, every rank's saved tuple,
+    rank 0's rank line and its checkpoint (payload, meta)."""
+    import os
+    from neuron_gan_tpu_torch import train as ttrain
+    from neuron_gan_tpu_torch.checkpoint import load_pytree_npz
+    from neuron_gan_tpu_torch.parallel import mesh_ranks, spawn
+    n = mesh_ranks(mesh)
+    out_dir = os.path.join(tmp, f'{run_id}_ranks')
+    os.makedirs(out_dir)
+    root = os.path.join(tmp, run_id)
+    cfg_path = os.path.join(tmp, f'{run_id}.py')
+    write_cli_config(cfg_path, root, data, seed, ID=run_id, mesh_shape=mesh,
+                     **knobs)
+    spawned = []
+
+    def spawn_recording(target, world, argv):
+        assert target is ttrain._train_rank and world == n
+        spawned.append(world)
+        spawn(_cli_rank, world, argv, out_dir)
+
+    t0 = time.perf_counter()
+    with mock.patch.object(ttrain, 'spawn', spawn_recording):
+        ttrain.main(['--configs', cfg_path])
+    secs = time.perf_counter() - t0
+    assert spawned == [n], spawned
+    ranks = [torch.load(os.path.join(out_dir, f'rank{r}.pt'),
+                        weights_only=False) for r in range(n)]
+    with open(os.path.join(out_dir, 'rank0.log')) as fh:
+        said = [ln for ln in fh.read().splitlines() if ln.startswith('mesh:')]
+    return secs, ranks, said, load_pytree_npz(
+        os.path.join(root, 'weights', f'GenDisc_{run_id}.npz'))
+
+
 def check_dp_nccl(torch, seed, world_size):
     """``world_size`` ranks over NCCL, rank r on cuda:r.  First the batch
-    step of ``dp_step_parity``.  Then the train CLI's data-parallel session
-    under mesh_shape={'data': world_size} (``train.main``, its ranks
-    spawned as the CLI spawns them) on 16 synthetic 512^2 PNGs through
-    every phase to epoch 16, with the similarity loss on (its images and z
-    gathered over NCCL).  Held: every rank's final state and stats equal
-    bit for bit, finite stats, rank 0's checkpoint at epoch 16 with finite
-    series, each rank launching K1-K4, and D's and G's parameters within
-    the shipping parity bound of a 1-process session of the same config on
-    cuda:0, the distance between two such sessions printed beside it."""
+    step of ``dp_step_parity`` and, for an even ``world_size``,
+    ``tp_step_parity`` on a grid of ``world_size / 2`` data rows and 2
+    model ranks; over each, a steady window's steps/s and collective
+    ms a step, beside one process's steps/s on the same batch.  Then the
+    train CLI's sessions on 16 synthetic 512^2 PNGs through every phase to
+    epoch 16, with the similarity loss on (its images and z gathered over
+    NCCL), under mesh_shape={'data': world_size} and, for an even
+    ``world_size``, {'data': world_size / 2, 'model': 2}.  Held for each:
+    every rank's stats equal bit for bit (and its state, or its
+    replicated leaves and the slices of its model rank), finite stats,
+    rank 0's checkpoint at epoch 16 with finite series, each rank
+    launching K1-K4, and D's and G's parameters (the grid's gathered into
+    the checkpoint) within the shipping parity bound of a 1-process session
+    of the same config on cuda:0, the distance between two such sessions
+    printed beside it.  The grid's checkpoint is resumed by one process
+    for an epoch 17."""
     import contextlib
     import os
     import tempfile
     from neuron_gan_tpu_torch import train as ttrain
-    from neuron_gan_tpu_torch.checkpoint import load_pytree_npz
     from neuron_gan_tpu_torch.convert import to_jax_state
-    from neuron_gan_tpu_torch.parallel import spawn
+    from neuron_gan_tpu_torch.models import DiscriminatorPG, GeneratorPG
+    from neuron_gan_tpu_torch.train_step import (
+        init_train_state, make_batch_step)
     if torch.cuda.device_count() < world_size:
         raise AssertionError(f'{world_size} ranks need {world_size} cards, '
                              f'have {torch.cuda.device_count()}')
+    model_arm = world_size % 2 == 0
     step, failed = dp_step_parity(torch, seed, world_size, 'nccl')
     result = {'phase': 'dp_nccl', 'nvidia_smi': nvidia_smi_lines(),
               'path': 'shipping', 'resolution': 512, 'step': step}
+    if model_arm:
+        tp_step, tp_failed = tp_step_parity(torch, seed, world_size, 2,
+                                            'nccl')
+        result['tp_step'] = tp_step
+        failed += tp_failed
+    cfg, spec, raw, draws = tp_inputs(torch, seed, 'cuda')
+    init = torch.Generator().manual_seed(seed)
+    state = init_train_state(GeneratorPG(cfg, init, device='cuda'),
+                             DiscriminatorPG(cfg, init, device='cuda'))
+    one_step = make_batch_step(cfg, spec)
+    result['one_process_timing'] = steady_rate(torch, lambda: one_step(
+        state, raw, draws[0], None, spec.lr0, 0.0))
     if failed:
         raise AssertionError(f'{failed}: {json.dumps(result)}')
 
     knobs = dict(sim_loss_lambda=0.1, N_epochs_session=None)
+    meshes = {'dp': {'data': world_size}}
+    if model_arm:
+        meshes['tp'] = {'data': world_size // 2, 'model': 2}
     with tempfile.TemporaryDirectory() as tmp:
         data = write_dataset(os.path.join(tmp, 'data'), seed)
         runs = {}
@@ -1852,29 +2264,21 @@ def check_dp_nccl(torch, seed, world_size):
             runs[name] = {'state': to_jax_state(session.state),
                           'stats': np.concatenate(stats),
                           'seconds': time.perf_counter() - t0}
-        root = os.path.join(tmp, 'dp')
-        cfg_path = os.path.join(tmp, 'dp.py')
-        write_cli_config(cfg_path, root, data, seed, ID='smkn',
-                         mesh_shape={'data': world_size}, **knobs)
-        spawned = []
-
-        def spawn_recording(target, n, argv):
-            assert target is ttrain._train_rank and n == world_size
-            spawned.append(n)
-            spawn(_cli_rank, n, argv, tmp)
-
-        t0 = time.perf_counter()
-        with mock.patch.object(ttrain, 'spawn', spawn_recording):
-            ttrain.main(['--configs', cfg_path])
-        secs = time.perf_counter() - t0
-        assert spawned == [world_size], spawned
-        ranks = [torch.load(os.path.join(tmp, f'rank{r}.pt'),
-                            weights_only=False) for r in range(world_size)]
-        with open(os.path.join(tmp, 'rank0.log')) as fh:
-            said = [ln for ln in fh.read().splitlines()
-                    if ln.startswith('data parallel:')]
-        payload, meta = load_pytree_npz(os.path.join(root, 'weights',
-                                                     'GenDisc_smkn.npz'))
+        sessions = {arm: _grid_session(torch, tmp, data, seed, mesh,
+                                       f'smk{arm}', **knobs)
+                    for arm, mesh in meshes.items()}
+        if model_arm:
+            # one process resumes the grid's checkpoint, for one epoch more
+            cfg_path = os.path.join(tmp, 'resume.py')
+            write_cli_config(cfg_path, os.path.join(tmp, 'smktp'), data, seed,
+                             ID='smktp', resume=True, N_epochs=17,
+                             N_epochs_session=None)
+            stats = []
+            with open(os.path.join(tmp, 'resume.log'), 'w') as log, \
+                    contextlib.redirect_stdout(log), recording_chunks(stats):
+                session = ttrain.main(['--configs', cfg_path])
+            resumed = {'epoch_init': session.epoch_init,
+                       'stats': np.concatenate(stats)}
 
     def params(state, net):
         return [torch.from_numpy(np.array(x)) for x in
@@ -1885,43 +2289,75 @@ def check_dp_nccl(torch, seed, world_size):
                             params(runs['one']['state'], net))
                 for net in ('D', 'G')}
 
-    state0, stats0, _ = ranks[0]
+    def stats_dist(s):
+        return rel_l2([torch.from_numpy(s)],
+                      [torch.from_numpy(runs['one']['stats'])])
+
+    def grid_equal(ranks):
+        """Every rank's replicated leaves equal, its slices those of the
+        rank of its model rank on data row 0."""
+        for saved in ranks[1:]:
+            local, twin = saved[0], ranks[saved[3][1]][0]
+            for net in ('G', 'D'):
+                for key in ('params', 'exp_avg', 'exp_avg_sq'):
+                    for x, y, z, s in zip(local[net][key],
+                                          ranks[0][0][net][key],
+                                          twin[net][key],
+                                          local[net]['sharded']):
+                        if not np.array_equal(x, z if s else y):
+                            return False
+        return True
+
     bound = REL_L2_BOUND['shipping']
-    cli = {'seconds': round(secs, 3), 'said': said,
-           'checkpoint_epoch': int(meta['epoch']),
-           'one_process_seconds': [round(r['seconds'], 3)
-                                   for r in runs.values()],
-           'rel_l2_bound': bound,
-           'params_rel_l2_to_one_process': {
-               'one_again': dist(runs['one_again']['state']),
-               'dp': dist(state0)},
-           'stats_rel_l2_to_one_process': {
-               name: rel_l2([torch.from_numpy(s)],
-                            [torch.from_numpy(runs['one']['stats'])])
-               for name, s in (('one_again', runs['one_again']['stats']),
-                               ('dp', stats0))},
-           'ranks_equal': all(
-               all(np.array_equal(x, y) for x, y in zip(
-                   state_leaves(state0), state_leaves(rk[0])))
-               and np.array_equal(stats0, rk[1]) for rk in ranks[1:]),
-           'launches': {f'rank{r}': rk[2] for r, rk in enumerate(ranks)}}
-    result['cli'] = cli
-    d = cli['params_rel_l2_to_one_process']['dp']
-    if said != [f'data parallel: {world_size} ranks, nccl on cuda:0']:
-        failed.append(f'rank 0 said {said}')
-    if meta['epoch'] != 16 or not all(
-            np.isfinite(s).all() for s in payload['series'].values()):
-        failed.append(f'checkpoint at epoch {meta["epoch"]}, or a series '
-                      'not finite')
-    if not np.isfinite(stats0).all() or not cli['ranks_equal']:
-        failed.append('stats not finite, or the ranks differ')
-    if d['D'] > bound['D'] or d['G'] > bound['G']:
-        failed.append("the ranks' parameters outside the bound of the "
-                      '1-process session')
-    for r, rk in enumerate(ranks):
-        for key in ('k1', 'k2', 'k3', 'k4'):
-            if not rk[2][key]:
-                failed.append(f'rank {r} never launched {key}')
+    result['rel_l2_bound'] = bound
+    result['one_process_seconds'] = [round(r['seconds'], 3)
+                                     for r in runs.values()]
+    result['one_again'] = {'params_rel_l2': dist(runs['one_again']['state']),
+                           'stats_rel_l2': stats_dist(
+                               runs['one_again']['stats'])}
+    for arm, (secs, ranks, said, (payload, meta)) in sessions.items():
+        state0, stats0 = ranks[0][0], ranks[0][1]
+        sharded = arm == 'tp'
+        gathered = payload['state'] if sharded else state0
+        cli = {'mesh': meshes[arm], 'seconds': round(secs, 3), 'said': said,
+               'checkpoint_epoch': int(meta['epoch']),
+               'params_rel_l2_to_one_process': dist(gathered),
+               'stats_rel_l2_to_one_process': stats_dist(stats0),
+               'ranks_equal': all(np.array_equal(stats0, rk[1])
+                                  for rk in ranks[1:]) and (
+                   grid_equal(ranks) if sharded else all(
+                       all(np.array_equal(x, y) for x, y in zip(
+                           state_leaves(state0), state_leaves(rk[0])))
+                       for rk in ranks[1:])),
+               'launches': {f'rank{r}': rk[2] for r, rk in enumerate(ranks)}}
+        if sharded:
+            cli['resumed'] = {'epoch_init': resumed['epoch_init'],
+                              'stats_finite': bool(np.isfinite(
+                                  resumed['stats']).all())}
+        result[f'cli_{arm}'] = cli
+        mesh = meshes[arm]
+        want = (f'mesh: data {mesh["data"]} x model {mesh.get("model", 1)}, '
+                'nccl on cuda:0')
+        d = cli['params_rel_l2_to_one_process']
+        if said != [want]:
+            failed.append(f'{arm}: rank 0 said {said}')
+        if meta['epoch'] != 16 or not all(
+                np.isfinite(s).all() for s in payload['series'].values()) or \
+                not all(np.isfinite(x).all() for x in state_leaves(gathered)):
+            failed.append(f'{arm}: checkpoint at epoch {meta["epoch"]}, or '
+                          'not finite')
+        if not np.isfinite(stats0).all() or not cli['ranks_equal']:
+            failed.append(f'{arm}: stats not finite, or the ranks differ')
+        if d['D'] > bound['D'] or d['G'] > bound['G']:
+            failed.append(f"{arm}: the ranks' parameters outside the bound "
+                          'of the 1-process session')
+        for r, rk in enumerate(ranks):
+            for key in ('k1', 'k2', 'k3', 'k4'):
+                if not rk[2][key]:
+                    failed.append(f'{arm}: rank {r} never launched {key}')
+        if sharded and (resumed['epoch_init'] != 17
+                        or not cli['resumed']['stats_finite']):
+            failed.append(f'one process did not resume the grid: {resumed}')
     if failed:
         raise AssertionError(f'{failed}: {json.dumps(result)}')
     return result
@@ -2597,6 +3033,8 @@ def smoke(torch, seed, smi, t_start, work):
     emit(stream)
     dp = check_dp(torch, seed)
     emit(dp)
+    tp = check_tp(torch, seed)
+    emit(tp)
     emit(check_legacy(torch, seed))
     stretch = check_stretch(torch, seed, work)
     emit(stretch)
@@ -2667,10 +3105,11 @@ def smoke(torch, seed, smi, t_start, work):
                 'bound_ms': sum(e['n'] * site_bound_ms(
                     key, dtype, tuple(e['x']), e['case']) for e in sites)}
 
-    # the streamed run, each rank (shipping path) and the stretch run
-    # (bfloat16)
+    # the streamed run, each rank (shipping path; tp: two steps) and the
+    # stretch run (bfloat16)
     other_paths = {'stream': stream['runs']['streamed']['launches'],
                    **{f'dp_{r}': n for r, n in dp['launches'].items()},
+                   **{f'tp_{r}': n for r, n in tp['launches'].items()},
                    'stretch': stretch['launches']}
 
     def row(name, src, replaces, key, dtype, err, ms, plain_ms, bound_ms,

@@ -84,9 +84,12 @@ N_gen_features = [128, 64, 32, 32, 16, 16]
 N_dis_features = [16, 16, 32, 32, 64, 128]
 
 # Execution on the GPU (the JAX package's TPU knobs, mapped)
-mesh_shape = None            # {'data': N}: data-parallel training over N
-                             # processes, one per card (parallel/data.py);
-                             # the 'model' axis is not ported (ROADMAP A9.3)
+mesh_shape = None            # e.g. {'data': 8} or {'data': 4, 'model': 2}; None
+                             # = one process. D*M processes, one per card:
+                             # 'data' splits each batch (parallel/data.py),
+                             # 'model' shards the weights, Adam moments and
+                             # EMA by output channel (parallel/mesh.py); a
+                             # 'model' axis needs a 'data' axis beside it
 compute_dtype = 'mixed'      # 'float32', 'bfloat16', or 'mixed' (bfloat16
                              # activations, float32 stem/norm statistics/
                              # images/critic head), as in the JAX package
@@ -274,8 +277,8 @@ def validate_configs(interactive=True):
 
     # what the port does not run, refused by name
     precision_of(matmul_precision)
-    from neuron_gan_tpu_torch.parallel.data import data_ranks
-    data_ranks(mesh_shape)
+    from neuron_gan_tpu_torch.parallel.mesh import mesh_ranks
+    mesh_ranks(mesh_shape)
 
 
 define_ID_dependent_configs()

@@ -78,9 +78,13 @@ def _tree_of(named):
     return tree
 
 
-def to_jax_tree(module: torch.nn.Module):
-    """The module's parameters as a JAX-layout pytree of numpy arrays."""
-    return _tree_of((name, _numpy(p)) for name, p in module.named_parameters())
+def to_jax_tree(module):
+    """The module's parameters as a JAX-layout pytree of numpy arrays; or,
+    for (parameter name, tensor) pairs (a rank's slices under a model
+    axis: ``parallel.NetShards.named_local``), those tensors."""
+    named = (module.named_parameters() if isinstance(module, torch.nn.Module)
+             else module)
+    return _tree_of((name, _numpy(p)) for name, p in named)
 
 
 def _leaf(tree, name):
@@ -172,9 +176,16 @@ def _load_opt_state(opt, params, tree, leaf):
                 'exp_avg_sq': leaf(nu, i).to(p)}
 
 
+def _whole(state):
+    if getattr(state, 'shards', None) is not None:
+        raise ValueError('a sharded train state: make it whole first '
+                         '(parallel.gather_state)')
+
+
 def to_jax_state(state):
-    """The train state (train_step.TrainState) as the JAX package's train
-    state pytree of numpy arrays."""
+    """The train state (train_step.TrainState, whole) as the JAX package's
+    train state pytree of numpy arrays."""
+    _whole(state)
     tree = {'g_params': to_jax_tree(state.g), 'd_params': to_jax_tree(state.d),
             'g_opt': _opt_tree(state.g, state.g_opt),
             'd_opt': _opt_tree(state.d, state.d_opt)}
@@ -189,6 +200,7 @@ def load_jax_state(state, tree):
     shape match is restored, everything else keeps its value.  Returns the
     merge report."""
     from neuron_gan_tpu_torch.checkpoint import merge_state_tolerant
+    _whole(state)
     merged, report = merge_state_tolerant(to_jax_state(state), tree)
     load_jax_tree(state.g, merged['g_params'])
     load_jax_tree(state.d, merged['d_params'])

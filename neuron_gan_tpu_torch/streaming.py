@@ -99,19 +99,20 @@ class _Feeder:
 
 def run_epochs_streaming(cfg: PGConfig, spec: ChunkSpec, state, host_images,
                          rng: torch.Generator, first_epoch: int,
-                         n_epochs: int, max_group_batches: int, dp=None):
-    """Drop-in for ``make_epoch_runner(cfg, spec, n_epochs, dp)``'s run on
-    a host stack: ``host_images`` is an (N, P, P, C) float32 numpy array
+                         n_epochs: int, max_group_batches: int, grid=None):
+    """Drop-in for ``make_epoch_runner(cfg, spec, n_epochs, grid)``'s run
+    on a host stack: ``host_images`` is an (N, P, P, C) float32 numpy array
     or read-only memmap.  Returns the per-epoch stats (n_epochs, 6).  Under
-    ``dp`` each rank gathers only its rows of each batch."""
+    ``grid`` each rank gathers only its rows of each batch (the ranks of
+    one grid row the same rows)."""
     if len(host_images) != spec.n_images:
         raise ValueError(f'host stack of {len(host_images)} images for a '
                          f'spec of {spec.n_images}')
     device = next(state.g.parameters()).device
-    step = make_batch_step(cfg, spec, dp)
+    step = make_batch_step(cfg, spec, grid)
     B, frame = spec.batch_size, host_images.shape[1]
     n_full = spec.n_full_batches
-    lo, hi = (0, B) if dp is None else dp.rows(B)
+    lo, hi = (0, B) if grid is None else grid.rows(B)
     groups = plan_groups(n_full, max_group_batches)
     feeder = _Feeder(host_images, max_group_batches * (hi - lo), device)
 
@@ -135,17 +136,17 @@ def run_epochs_streaming(cfg: PGConfig, spec: ChunkSpec, state, host_images,
             group = feeder.get(k % 2).view(g1 - g0, hi - lo,
                                            *host_images.shape[1:])
             for j in range(g1 - g0):
-                draws = batch_draws(rng, cfg, spec, B, frame, dp)
+                draws = batch_draws(rng, cfg, spec, B, frame, grid)
                 total = total + step(state, group[j], draws, alpha, lr, lam, B)
             feeder.release(k % 2)
         rem = spec.batch_remainder
         if rem:
             # the final partial batch, as the JAX package's rem_runner
-            r_lo, r_hi = (0, rem) if dp is None else dp.rows(rem)
+            r_lo, r_hi = (0, rem) if grid is None else grid.rows(rem)
             tail = np.take(host_images, perm[n_full * B + r_lo:n_full * B + r_hi],
                            axis=0)
-            draws = batch_draws(rng, cfg, spec, rem, frame, dp)
+            draws = batch_draws(rng, cfg, spec, rem, frame, grid)
             total = total + step(state, torch.from_numpy(tail).to(device),
                                  draws, alpha, lr, lam, rem)
         totals.append(total)
-    return epoch_stats(totals, spec, dp)
+    return epoch_stats(totals, spec, grid)

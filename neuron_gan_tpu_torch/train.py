@@ -12,10 +12,13 @@ changes (``TrainSchedule.chunk_end``).
 Runs on the card unless ``--device cpu`` (or the ``device`` knob) asks for
 the CPU; without CUDA the default raises.
 
-``mesh_shape={'data': N}`` trains data-parallel over N processes
-(``parallel/data.py``): the command spawns them itself, one per card (NCCL;
-gloo under ``--device cpu``), or joins the group of a launcher that set
-``WORLD_SIZE`` (``torchrun``).  A dataset stack above ``hbm_budget_mb``
+``mesh_shape={'data': D}`` trains data-parallel over D processes
+(``parallel/data.py``), and ``mesh_shape={'data': D, 'model': M}`` over a
+grid of D·M, each rank holding its slice of the weights that JAX's rule
+shards, of their Adam moments and of the EMA generator
+(``parallel/mesh.py``): the command spawns the ranks itself, one per card
+(NCCL; gloo under ``--device cpu``), or joins the group of a launcher that
+set ``WORLD_SIZE`` (``torchrun``).  A dataset stack above ``hbm_budget_mb``
 streams from the host (``streaming.py``).  ``wgan=True`` runs the legacy
 fixed-resolution WGAN trainer (``legacy_train.py``).
 
@@ -51,7 +54,8 @@ from neuron_gan_tpu_torch.losses import d_w_loss, g_w_loss
 from neuron_gan_tpu_torch.metrics import swd_multiscale
 from neuron_gan_tpu_torch.models import (
     DiscriminatorPG, GeneratorPG, GrowthState, PGConfig)
-from neuron_gan_tpu_torch.parallel import DataParallel, data_ranks, spawn
+from neuron_gan_tpu_torch.parallel import (
+    Grid, gather_state, mesh_ranks, shard_state, spawn)
 from neuron_gan_tpu_torch.runtime import precision_scope, resolve_device
 from neuron_gan_tpu_torch.schedule import TrainSchedule
 from neuron_gan_tpu_torch.streaming import (
@@ -195,29 +199,30 @@ class TrainSession:
     """One training session: the configuration, dataset, models, optimizers
     and checkpointer, and ``train()`` over [epoch_init, epoch_final).
 
-    With ``dp`` (parallel.DataParallel) it is one rank of a data-parallel
-    run: it trains on its rows of every batch, and rank 0 alone writes
+    With ``grid`` (parallel.Grid) it is one rank of a parallel run: it
+    trains on its rows of every batch, under a model axis it keeps its
+    slices of the state (``self.state.shards``), and rank 0 alone writes
     checkpoints, grids, plots and the SWD series."""
 
-    def __init__(self, config, dp=None):
+    def __init__(self, config, grid=None):
         self.config = config
-        self.dp = dp
-        self.writer = dp is None or dp.rank == 0
+        self.grid = grid
+        self.writer = grid is None or grid.rank == 0
         config.print_configs()
-        if dp is None:
+        if grid is None:
             # 'default' and 'cuda' are the card, which must exist
             self.device = resolve_device(config.device)
             confirm_id(config)
         else:
-            self.device = dp.device
+            self.device = grid.device
 
         # ------------------------------------------------------ dataset
         # rank 0 first: it may build the loader's memmap cache
-        if dp is not None and dp.rank != 0:
-            dp.barrier()
+        if grid is not None and grid.rank != 0:
+            grid.barrier()
         self.dataset = load_dataset(config)
-        if dp is not None and dp.rank == 0:
-            dp.barrier()
+        if grid is not None and grid.rank == 0:
+            grid.barrier()
         self.n_images = len(self.dataset)
 
         # ------------------------------------------------------ networks
@@ -265,8 +270,11 @@ class TrainSession:
         elif config.weights_init:
             growth = self._weights_init(os.path.join(config.weights_dir,
                                                      config.weights_init), growth)
-        if dp is not None:
-            dp.broadcast_state(self.state)
+        if grid is not None:
+            # every rank loads whole leaves, takes rank 0's, then keeps
+            # its slices
+            grid.broadcast_state(self.state)
+            self.state = shard_state(self.state, grid)
         self.dataset.set_image_size(growth.image_size)
 
         # the stack lives on the device, or above the budget on the host,
@@ -482,6 +490,12 @@ class TrainSession:
             epoch, mean, levels[0], res, res))
 
     def save_checkpoint(self, epoch, growth):
+        """Rank 0 writes the train state at ``epoch``.  Under a model axis
+        every rank calls it: each model group gathers the sharded leaves
+        (rank 0's writes them)."""
+        state = gather_state(self.state)
+        if not self.writer:
+            return
         config = self.config
         meta = {
             # the lr in effect at the checkpointed epoch (the reference
@@ -499,7 +513,7 @@ class TrainSession:
             'N_colors': self.model_cfg.n_colors,
             'LeakyReLU_leak': self.model_cfg.neg_slope,
         }
-        self.checkpoint.save_state(epoch, to_jax_state(self.state), meta)
+        self.checkpoint.save_state(epoch, to_jax_state(state), meta)
 
     # ------------------------------------------------------------ training
     def _run_chunk(self, spec, epoch, n_epochs, profile):
@@ -512,11 +526,11 @@ class TrainSession:
             def runner(state, _, rng_, first_epoch):
                 return run_epochs_streaming(
                     self.model_cfg, spec, state, self.dataset.images, rng_,
-                    first_epoch, n_epochs, max_group, self.dp)
+                    first_epoch, n_epochs, max_group, self.grid)
         else:
             # looked up at call time, so a caller may wrap it
             runner = train_step.make_epoch_runner(self.model_cfg, spec,
-                                                  n_epochs, self.dp)
+                                                  n_epochs, self.grid)
         if not profile:
             return runner(self.state, self.images_stack, rng, epoch).cpu().numpy()
         from torch.profiler import ProfilerActivity, profile as profiler
@@ -580,11 +594,12 @@ class TrainSession:
             epoch = chunk_end + 1
             # save on the period, and at session end so trailing epochs of
             # a run off the period are never trained then discarded
-            if self.writer and (chunk_end % config.checkpointing_period == 0
-                                or chunk_end == self.epoch_final - 1):
+            if (chunk_end % config.checkpointing_period == 0
+                    or chunk_end == self.epoch_final - 1):
                 growth_end = self.growth_at(chunk_end)
                 self.save_checkpoint(chunk_end, growth_end)
-                self.checkpoint_artifacts(chunk_end, growth_end)
+                if self.writer:
+                    self.checkpoint_artifacts(chunk_end, growth_end)
             # quality monitor: when this chunk crossed a multiple of
             # swd_period (chunks need not land on multiples)
             if self.writer and config.swd_period > 0 and (
@@ -594,9 +609,9 @@ class TrainSession:
                     self.swd_monitor(chunk_end, self.growth_at(chunk_end))
                 except Exception as exc:  # monitoring must never kill training
                     print(f'SWD monitor skipped: {exc}')
-            if self.dp is not None:
+            if self.grid is not None:
                 # the other ranks wait while rank 0 writes
-                self.dp.barrier()
+                self.grid.barrier()
         return self
 
     def _monitor_line(self, monitored, e, n_critic, st, start_time):
@@ -627,8 +642,8 @@ class TrainSession:
 
 
 def _train_rank(rank, world_size, init_method, argv, local_rank=None):
-    """One rank of a data-parallel session; rank 0 alone prints.  Returns
-    the rank's finished session."""
+    """One rank of a parallel session (the config's ``mesh_shape``); rank
+    0 alone prints.  Returns the rank's finished session."""
     if rank != 0:
         sys.stdout = open(os.devnull, 'w')
     config = load_config(argv, interactive=False)
@@ -643,11 +658,12 @@ def _train_rank(rank, world_size, init_method, argv, local_rank=None):
         # CPU ranks share the host's cores
         torch.set_num_threads(1)
         device = torch.device('cpu')
-    dp = DataParallel.init(rank, world_size, init_method, device)
-    print('data parallel: {} ranks, {} on {}'.format(
-        world_size, torch.distributed.get_backend(), device))
+    grid = Grid.init(rank, world_size, init_method, device,
+                     model_size=int(dict(config.mesh_shape).get('model', 1)))
+    print(f'mesh: data {grid.data_size} x model {grid.model_size}, '
+          f'{grid.backend} on {device}')
     try:
-        return TrainSession(config, dp).train()
+        return TrainSession(config, grid).train()
     finally:
         torch.distributed.destroy_process_group()
 
@@ -664,7 +680,7 @@ def main(argv=None):
         confirm_id(config)
         return wgan_train(config, load_dataset(config),
                           resolve_device(config.device))
-    n = data_ranks(config.mesh_shape)
+    n = mesh_ranks(config.mesh_shape)
     if n is None:
         return TrainSession(config).train()
     if 'WORLD_SIZE' in os.environ:

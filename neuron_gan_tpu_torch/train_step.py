@@ -35,6 +35,7 @@ from neuron_gan_tpu_torch.losses import (
     d_grad_pen_loss, d_w_loss, g_w_loss, similarity_loss)
 from neuron_gan_tpu_torch.models import (
     DiscriminatorPG, GeneratorPG, PGConfig, precision_scope)
+from neuron_gan_tpu_torch.parallel.mesh import ShardedState
 from neuron_gan_tpu_torch.schedule import TrainSchedule
 from neuron_gan_tpu_torch.utils.latents import sample_latent_vec
 
@@ -61,6 +62,9 @@ class TrainState:
     g_opt: torch.optim.Optimizer
     d_opt: torch.optim.Optimizer
     g_ema: Optional[GeneratorPG] = None   # shadow generator when ema_beta > 0
+    # under a grid's model axis (parallel.shard_state): what this rank
+    # keeps; g_opt and d_opt then step its tensors, and g_ema is in it
+    shards: Optional[ShardedState] = None
 
 
 def init_train_state(g, d, beta1=0.5, rmsprop=False, ema_beta=0.0):
@@ -245,19 +249,22 @@ def _grads_into(loss, params):
         p.grad = torch.zeros_like(p) if g is None else g
 
 
-def make_batch_step(cfg: PGConfig, spec: ChunkSpec, dp=None):
+def make_batch_step(cfg: PGConfig, spec: ChunkSpec, grid=None):
     """Build ``step(state, raw_batch, draws, alpha, lr, sim_lam[, batch])``:
     one full G+D update on one raw batch (B, P, P, C) in [0, 1].  Returns
     the stats (STAT_NAMES) weighted by the batch size, on the device.  After
     it, the parameters' ``.grad`` hold the last critic step's and the
     generator step's gradients, taken before their optimizer steps.
 
-    With ``dp`` (parallel.DataParallel), ``raw_batch`` and ``draws`` are
-    this rank's rows ``dp.rows(batch)`` of a global batch of ``batch``
-    rows (possibly none): each gradient is reduced over the ranks before
-    its optimizer step, the similarity loss sees the global batch, and the
+    With ``grid`` (parallel.Grid), ``raw_batch`` and ``draws`` are this
+    rank's rows ``grid.rows(batch)`` of a global batch of ``batch`` rows
+    (possibly none): each gradient is reduced over the ranks before its
+    optimizer step, the similarity loss sees the global batch, and the
     stats are this rank's rows' share of the global batch's (their sum over
-    the ranks is the 1-process step's)."""
+    the data group is the 1-process step's).  Under a model axis
+    (``state.shards``) the reduced gradients are this rank's slices, in
+    the ``.grad`` of the tensors the optimizers step, and each optimizer
+    step is followed by the refresh of its net's working copy."""
     aug_spec = _augment_spec(cfg, spec)
 
     def step(state: TrainState, raw_batch, draws, alpha, lr, sim_lam,
@@ -301,22 +308,33 @@ def make_batch_step(cfg: PGConfig, spec: ChunkSpec, dp=None):
                                      spec.gp_lambda, remat=spec.gp_remat)
             return loss_w + gp, (sr, sf, gp)
 
-        def grads_into(loss, params):
+        shards = state.shards
+        d_net, g_net = (None, None) if shards is None else (shards.d, shards.g)
+
+        def grads_into(loss, params, net):
             # a rank without rows still joins the reduction
             if b:
                 _grads_into(loss, params)
             else:
                 for p in params:
                     p.grad = torch.zeros_like(p)
-            if dp is not None:
-                dp.reduce_grads(params, b / batch)
+            if net is not None:
+                net.reduce_grads(b / batch)
+            elif grid is not None:
+                grid.reduce_grads(params, b / batch)
+
+        def opt_step(opt, net):
+            opt.step()
+            if net is not None:
+                # the working copy from the stepped slices
+                net.refresh()
 
         sr = sf = gp = d_loss = zero
         for j in range(spec.n_critic):
             if b:
                 d_loss, (sr, sf, gp) = d_total_loss(*draws['critic'][j])
-            grads_into(d_loss, d_params)
-            state.d_opt.step()
+            grads_into(d_loss, d_params, d_net)
+            opt_step(state.d_opt, d_net)
         if spec.n_critic == 0 and b:
             # loss computed for monitoring only (reference train.py:369-372)
             d_loss, (sr, sf, gp) = d_total_loss(*draws['critic'][0])
@@ -326,25 +344,28 @@ def make_batch_step(cfg: PGConfig, spec: ChunkSpec, dp=None):
             g_loss, z = g_w_loss(g_apply, d_apply, draws['zg'])
         g_sim = zero
         if spec.sim_lambda0 > 0:
-            if dp is None:
+            if grid is None:
                 sim_images, sim_z = images, z
             else:
                 # pairwise over the global batch: its rows from every rank
                 res = cfg.resolution(spec.phase)
-                sim_images = dp.gather_rows(
+                sim_images = grid.gather_rows(
                     images.reshape(b, -1) if b else
                     raw_batch.new_zeros((0, cfg.n_colors * res * res)), batch)
-                sim_z = dp.gather_rows(
+                sim_z = grid.gather_rows(
                     z.reshape(b, -1) if b else
                     raw_batch.new_zeros((0, spec.latent_dim)), batch)
             g_sim = similarity_loss(sim_images, sim_z, 1.0) * sim_lam
             g_loss = g_loss + g_sim
-        grads_into(g_loss, g_params)
-        state.g_opt.step()
+        grads_into(g_loss, g_params, g_net)
+        opt_step(state.g_opt, g_net)
 
         if spec.ema_beta > 0:
+            # elementwise: under a model axis on this rank's slices
+            pairs = (zip(state.g_ema.parameters(), g_params) if shards is None
+                     else zip(shards.g_ema, shards.g.local))
             with torch.no_grad():
-                for e, p in zip(state.g_ema.parameters(), g_params):
+                for e, p in pairs:
                     e.mul_(spec.ema_beta).add_(p, alpha=1.0 - spec.ema_beta)
         stats = torch.stack([sr, sf, d_loss, g_loss, gp, g_sim]).detach()
         return stats * b
@@ -364,26 +385,27 @@ def epoch_order(spec: ChunkSpec, rng: torch.Generator):
     return torch.randperm(spec.n_images, generator=rng, device=rng.device)
 
 
-def batch_draws(rng, cfg, spec, batch, frame, dp=None):
+def batch_draws(rng, cfg, spec, batch, frame, grid=None):
     """``draw_batch`` for a global batch of ``batch`` rows, and this rank's
-    rows of it under ``dp``: every rank draws the whole batch."""
+    rows of it under ``grid``: every rank draws the whole batch."""
     draws = draw_batch(rng, cfg, spec, batch, frame)
-    if dp is None:
+    if grid is None:
         return draws
     from neuron_gan_tpu_torch.parallel import take_rows
-    return take_rows(draws, *dp.rows(batch))
+    return take_rows(draws, *grid.rows(batch))
 
 
-def make_epoch_runner(cfg: PGConfig, spec: ChunkSpec, n_epochs: int, dp=None):
+def make_epoch_runner(cfg: PGConfig, spec: ChunkSpec, n_epochs: int,
+                      grid=None):
     """Build ``run(state, images_stack, rng, first_epoch)`` -> per-epoch
     stats (n_epochs, 6), each epoch's batch-weighted sums over n_images.
 
     ``images_stack`` is (N, P, P, C) in [0, 1] on the models' device; each
     epoch draws a permutation (when ``spec.shuffle``), then the batch
-    draws, from ``rng``.  The last batch may be partial.  With ``dp`` each
-    rank trains on its rows of every batch and the stats are summed over
-    the ranks."""
-    step = make_batch_step(cfg, spec, dp)
+    draws, from ``rng``.  The last batch may be partial.  With ``grid``
+    each rank trains on its rows of every batch and the stats are summed
+    over the data group."""
+    step = make_batch_step(cfg, spec, grid)
 
     def run(state: TrainState, images_stack, rng: torch.Generator,
             first_epoch: int):
@@ -398,23 +420,23 @@ def make_epoch_runner(cfg: PGConfig, spec: ChunkSpec, n_epochs: int, dp=None):
             for start in range(0, spec.n_images, spec.batch_size):
                 b = min(spec.batch_size, spec.n_images - start)
                 rows = slice(start, start + b)
-                if dp is not None:
-                    lo, hi = dp.rows(b)
+                if grid is not None:
+                    lo, hi = grid.rows(b)
                     rows = slice(start + lo, start + hi)
                 raw = (images_stack[order[rows]] if order is not None
                        else images_stack[rows])
-                draws = batch_draws(rng, cfg, spec, b, frame, dp)
+                draws = batch_draws(rng, cfg, spec, b, frame, grid)
                 total = total + step(state, raw, draws, alpha, lr, lam, b)
             totals.append(total)
-        return epoch_stats(totals, spec, dp)
+        return epoch_stats(totals, spec, grid)
 
     return run
 
 
-def epoch_stats(totals, spec: ChunkSpec, dp=None):
+def epoch_stats(totals, spec: ChunkSpec, grid=None):
     """Per-epoch stats from each epoch's batch-weighted sums (summed over
-    the ranks under ``dp``)."""
+    the data group under ``grid``)."""
     totals = torch.stack(totals)
-    if dp is not None:
-        dp.all_reduce_(totals)
+    if grid is not None:
+        grid.all_reduce_(totals)
     return totals / spec.n_images

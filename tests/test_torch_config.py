@@ -139,7 +139,7 @@ def test_knob_mapping(configs):
     with pytest.raises(ValueError, match="matmul_precision='high'.*'default'.*'highest'"):
         tc.precision_of('high')
     refused = {'matmul_precision': ('high', 'matmul_precision'),
-               'mesh_shape': ({'data': 4, 'model': 2}, 'ROADMAP A9.3')}
+               'mesh_shape': ({'model': 2}, "needs a 'data' axis")}
     for knob, (value, named) in refused.items():
         setattr(tc, 'ID', 't')
         setattr(tc, knob, value)
@@ -148,8 +148,9 @@ def test_knob_mapping(configs):
         setattr(tc, knob, tc.configs_name[knob])
     tc.validate_configs(interactive=False)
     assert tc.device == 'cuda'     # 'default' is the card, never the CPU
-    # the data axis and the legacy WGAN family are taken
-    for knob, value in (('mesh_shape', {'data': 8}), ('wgan', True)):
+    # both mesh axes and the legacy WGAN family are taken
+    for knob, value in (('mesh_shape', {'data': 8}),
+                        ('mesh_shape', {'data': 4, 'model': 2}), ('wgan', True)):
         setattr(tc, knob, value)
         tc.validate_configs(interactive=False)
         setattr(tc, knob, tc.configs_name[knob])

@@ -24,8 +24,7 @@ from PIL import Image
 
 from neuron_gan_tpu_torch import train as ttrain
 from neuron_gan_tpu_torch.convert import to_jax_state
-from neuron_gan_tpu_torch.parallel import (
-    DataParallel, data_ranks, spawn, take_rows)
+from neuron_gan_tpu_torch.parallel import Grid, mesh_ranks, spawn, take_rows
 
 from test_torch_cli import write_config
 
@@ -67,7 +66,7 @@ def dataset(path, n):
 def test_rows_partition_every_batch():
     for world in (1, 2, 3, 4):
         for b in range(0, 11):
-            rows = [DataParallel(r, world, 'cpu').rows(b) for r in range(world)]
+            rows = [Grid(r, world, 'cpu').rows(b) for r in range(world)]
             assert rows[0][0] == 0 and rows[-1][1] == b
             assert all(r0[1] == r1[0] for r0, r1 in zip(rows, rows[1:]))
             sizes = [hi - lo for lo, hi in rows]
@@ -85,13 +84,19 @@ def test_take_rows_keeps_shared_draws_shared():
 
 
 def test_data_ranks():
-    assert data_ranks(None) is None and data_ranks({}) is None
-    assert data_ranks({'data': 3}) == 3
-    for bad in ({'data': 2, 'model': 2}, {'model': 2}):
-        with pytest.raises(ValueError, match='ROADMAP A9.3'):
-            data_ranks(bad)
-    with pytest.raises(ValueError, match='at least one rank'):
-        data_ranks({'data': 0})
+    assert mesh_ranks(None) is None and mesh_ranks({}) is None
+    assert mesh_ranks({'data': 3}) == 3
+    assert mesh_ranks({'data': 2, 'model': 2}) == 4
+    assert mesh_ranks({'data': 1, 'model': 2}) == 2
+    # JAX's step fails on a mesh without a data axis
+    with pytest.raises(ValueError, match=r"needs a 'data' axis.*"
+                                         r"tests/test_parallel\.py"):
+        mesh_ranks({'model': 2})
+    for bad in ({'data': 0}, {'data': 0, 'model': 2}, {'data': 2, 'model': 0}):
+        with pytest.raises(ValueError, match='at least one rank'):
+            mesh_ranks(bad)
+    with pytest.raises(ValueError, match='unknown axes'):
+        mesh_ranks({'data': 2, 'pipe': 2})
 
 
 def recording_chunks(stats):
