@@ -32,6 +32,17 @@ Phases, each printing one JSON line:
               and K1/K2 launch only their template instances;
               then steps/s over steady 512^2 steps.  It runs before any
               kernel is timed: the profiler has not run in the process;
+   bench      the port's benchmark CLI (``neuron_gan_tpu_torch.bench``):
+              its headline in this process (the shipping step, steady
+              512^2, 5 windows of 10 epochs): K1-K4 launched exactly as
+              the steps it ran imply (G forwards of ``step_passes(
+              gp_reuse_fakes=True)``), ``hbm_roofline_pct`` <= 100 and the
+              step's bytes counted alike from the kernel and the plain
+              configuration; the headline again in a new process (its one
+              JSON line); ``--phase 2`` (exact launches), ``--eval`` and
+              ``--eval --fast`` (exact K1 / K1 and K3 launches over their
+              grids) and ``--measure-torch`` in this process; every rate
+              finite (``check_bench``);
    cli        the user's entry points at the flagship geometry, in this
               process (``runpy``, as ``python -m`` runs them): the train CLI
               (``neuron_gan_tpu_torch.train``) on 16 synthetic 512^2 PNGs
@@ -164,7 +175,10 @@ cards, and then prints every card's nvidia-smi line and the same last line:
               K1-K4 on every rank, the parameters (the grid's as gathered
               into its checkpoint) within the shipping parity bound of a
               1-process session; one process resumes the grid's
-              checkpoint (``check_dp_nccl``).
+              checkpoint (``check_dp_nccl``); then the bench CLI's
+              ``--mesh data=N`` and, for an even N, ``--mesh
+              data=N/2,model=2``, each a new process: NCCL, finite rates
+              (``check_bench_mesh``).
 """
 
 import argparse
@@ -1171,6 +1185,121 @@ def train(torch, seed, cfg, name):
             for (k, d, shape, c), n in sorted(per_step.items(), key=str)],
         'peak_mem_gib': torch.cuda.max_memory_allocated() / 2 ** 30,
     }
+
+
+# ---------------------------------------------------------------------------
+# phase bench: the port's benchmark CLI (neuron_gan_tpu_torch/bench.py)
+# ---------------------------------------------------------------------------
+
+def bench_line(argv):
+    """``python -m neuron_gan_tpu_torch.bench argv`` in this process (its
+    launch counters stay readable): its one JSON record."""
+    import contextlib
+    import io
+    from neuron_gan_tpu_torch import bench
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        bench.main(argv)
+    lines = buf.getvalue().splitlines()
+    assert len(lines) == 1, (argv, lines)
+    return json.loads(lines[0])
+
+
+def bench_subprocess(argv, timeout=600):
+    """``python3 -m neuron_gan_tpu_torch.bench argv`` in a new process from
+    the checkout's root: its one JSON record."""
+    import os
+    out = subprocess.run(
+        [sys.executable, '-m', 'neuron_gan_tpu_torch.bench', *argv],
+        capture_output=True, text=True, timeout=timeout,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = out.stdout.splitlines()
+    if out.returncode or len(lines) != 1:
+        raise AssertionError(f'bench {argv}: exit {out.returncode}\n'
+                             f'{out.stdout[-4000:]}\n{out.stderr[-4000:]}')
+    return json.loads(lines[0])
+
+
+def _finite_rate(rec, key='value'):
+    assert np.isfinite(rec[key]) and rec[key] > 0, rec
+    return rec
+
+
+def check_bench(torch):
+    """The bench's headline in this process (5 windows): K1-K4 launched
+    exactly ``expected_launches`` of the steps it ran (gp_reuse_fakes: G's
+    forwards of ``step_passes(gp_reuse_fakes=True)``), the roofline read
+    <= 100% and the step's bytes counted alike from the kernel and the
+    plain configuration; the headline again as a user runs it (a new
+    process, its one line); ``--phase 2`` (exact launches), ``--eval`` (K1
+    float32, exact) and ``--eval --fast`` (K1 and K3, exact) and
+    ``--measure-torch`` in this process.  Every record's rates finite."""
+    from neuron_gan_tpu_torch import bench
+    t_phase = time.perf_counter()
+    passes = step_passes(gp_reuse_fakes=True)
+
+    cfg, spec = bench.train_setup()
+    roofline = {}
+    reset_counters()
+    head = bench.bench_train(cfg, spec, windows=5, roofline=roofline)
+    launches = read_counters()
+    want = expected_launches(cfg, [spec.phase] * head['steps'], passes=passes)
+    assert launches == want, (launches, want)
+    assert roofline['hbm_gb_per_step'] > 0, roofline
+    assert 0 <= roofline['hbm_roofline_pct'] <= 100, roofline
+    raw = bench.synthetic_stack(spec.batch_size, bench.FRAME,
+                                torch.device('cuda'))
+    plain_bytes = bench.step_bytes(dataclasses.replace(cfg, use_kernels=False),
+                                   spec, raw)
+    assert plain_bytes == head['step_bytes'], (plain_bytes, head['step_bytes'])
+    in_process = {k: head[k] for k in ('value', 'min', 'max', 'windows',
+                                       'steps')}
+    in_process.update(roofline, step_bytes=head['step_bytes'],
+                      launches=launches)
+
+    cli = _finite_rate(bench_subprocess([]))
+    assert cli['metric'] == 'wgan_gp_train_steps_per_sec_512', cli
+    assert len(cli['windows']) == 5 and cli['hbm_roofline_pct'] <= 100, cli
+
+    reset_counters()
+    low = _finite_rate(bench_line(['--phase', '2']))
+    assert low['metric'] == 'wgan_gp_train_steps_per_sec_64', low
+    cfg2, spec2 = bench.train_setup(phase=2)
+    # the warm-up window and the default 5
+    n2 = (1 + 5) * bench.N_EPOCHS_CHUNK * spec2.n_full_batches
+    assert read_counters() == expected_launches(cfg2, [2] * n2, passes=passes)
+
+    evals = {}
+    for fast in (False, True):
+        reset_counters()
+        rec = _finite_rate(bench_line(['--eval'] + ['--fast'] * fast))
+        ecfg = bench.eval_config(fast)
+        grids = (bench.EVAL_REPS + 1) * bench.EVAL_ITERS
+        got = read_counters()
+        assert got == expected_launches(ecfg, [ecfg.n_phases - 1] * grids,
+                                        passes=SAMPLE_PASSES), (fast, got)
+        assert got['k1'] and bool(got['k3']) == fast, (fast, got)
+        evals['fast' if fast else 'highest'] = dict(rec, launches=got)
+
+    ref = _finite_rate(bench_line(['--measure-torch']),
+                       'torch_ref_steps_per_sec')
+    return {'phase': 'bench', 'in_process': in_process, 'cli': cli,
+            'phase_64': low, 'eval': evals, 'measure_torch': ref,
+            'headline_over_ref': cli['value'] / ref['torch_ref_steps_per_sec'],
+            'seconds': round(time.perf_counter() - t_phase, 1)}
+
+
+def check_bench_mesh(n):
+    """``--mesh data=N`` and, for an even N, ``--mesh data=N/2,model=2``,
+    each a new process spawning its N NCCL ranks, one card each."""
+    shapes = [f'data={n}'] + ([f'data={n // 2},model=2'] if n % 2 == 0 else [])
+    out = {}
+    for shape in shapes:
+        rec = _finite_rate(bench_subprocess(['--mesh', shape]))
+        _finite_rate(rec, 'single_device_steps_per_sec')
+        assert rec['backend'] == 'nccl' and rec['geometry'] == 'flagship', rec
+        out[shape] = rec
+    return {'phase': 'bench_mesh', 'records': out}
 
 
 # ---------------------------------------------------------------------------
@@ -2998,6 +3127,7 @@ def main():
 
     if args.ranks is not None:
         emit(check_dp_nccl(torch, args.seed, args.ranks))
+        emit(check_bench_mesh(args.ranks))
         for line in nvidia_smi_lines():
             print(line, flush=True)
         emit({'ok': True, 'device': {'platform': 'gpu',
@@ -3016,13 +3146,14 @@ def smoke(torch, seed, smi, t_start, work):
     import neuron_gan_tpu_torch.ops.lrelu_pixel_norm as lpn
     import neuron_gan_tpu_torch.ops.packed_conv_lrelu_pn as pcl
 
-    # the main paths first: their steps/s windows run in a process in which
-    # the profiler (device_ms) has not run yet
+    # the main paths first, then the bench: their steps/s windows run in a
+    # process in which the profiler (device_ms) has not run yet
     paths = {name: make() for name, (make, _) in PATHS.items()}
     trained = {}
     for name, cfg in paths.items():
         trained[name] = train(torch, seed, cfg, name)
         emit(trained[name])
+    emit(check_bench(torch))
     # the user's entry points, still before any profiler session
     cli = check_cli(torch, seed, work)
     emit(cli)

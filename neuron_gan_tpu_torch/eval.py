@@ -58,6 +58,14 @@ def build_parser():
     return parser
 
 
+def fast_config(cfg):
+    """``cfg`` as ``-fast`` runs it: precision=None (TF32 allowed, fused
+    level boundaries) in the packed layouts."""
+    return dataclasses.replace(
+        cfg, precision=None, packed_lanes=128,
+        packed_min_res=max(64, 2 * cfg.image_size_init))
+
+
 def load_generator(weights_filepath, device, fast=False, ema=False,
                    use_kernels=True):
     """(generator module, growth) from a ``.pth`` or ``.npz`` file."""
@@ -91,9 +99,7 @@ def load_generator(weights_filepath, device, fast=False, ema=False,
             growth.set_resolution(int(meta['image_size']), float(meta['alpha']))
     cfg = dataclasses.replace(cfg, use_kernels=use_kernels)
     if fast:
-        cfg = dataclasses.replace(
-            cfg, precision=None, packed_lanes=128,
-            packed_min_res=max(64, 2 * cfg.image_size_init))
+        cfg = fast_config(cfg)
     growth = GrowthState(cfg, phase=growth.phase, alpha=growth.alpha)
     g = GeneratorPG(cfg, torch.Generator().manual_seed(0), device=device)
     return load_jax_tree(g, g_params), growth
