@@ -139,8 +139,9 @@ Phases, each printing one JSON line:
               128^2: both arms' SWD finite, the verdict line, each arm's
               launches exactly (reference arm float32, shipping arm
               bfloat16); ``step_profile`` at the shipping path's top phase
-              (every stage finite, the critic with the GP slower than
-              without); ``op_trace`` at phases 3 and 5 (categories summing
+              (every stage span of the step, each finite, the gradient
+              penalty's kernels on the device); ``op_trace`` at phases 3
+              and 5 (categories summing
               to the total, layout kernels and copies listed);
               ``convert_checkpoint`` .npz -> .pth -> .npz on the cli
               phase's checkpoint (what the reference format carries, bit
@@ -1073,18 +1074,17 @@ def expected_launches(cfg, phases_per_step, gp_remat=False, passes=None):
 def reset_counters():
     import neuron_gan_tpu_torch.ops.lrelu_pixel_norm as lpn
     import neuron_gan_tpu_torch.ops.packed_conv_lrelu_pn as pcl
-    for counter in (lpn.fwd_launches, lpn.bwd_launches, pcl.conv_launches,
-                    pcl.dz_launches, lpn.launches_by_case,
-                    pcl.launches_by_case):
-        counter.clear()
+    lpn.launches_by_case.clear()
+    pcl.launches_by_case.clear()
 
 
 def read_counters():
     import neuron_gan_tpu_torch.ops.lrelu_pixel_norm as lpn
     import neuron_gan_tpu_torch.ops.packed_conv_lrelu_pn as pcl
-    return {'k1': {launch_key(*k): n for k, n in lpn.fwd_launches.items()},
-            'k2': {launch_key(*k): n for k, n in lpn.bwd_launches.items()},
-            'k3': dict(pcl.conv_launches), 'k4': dict(pcl.dz_launches)}
+    sums = {**lpn.launches_by_kernel(), **pcl.launches_by_kernel()}
+    return {'k1': {launch_key(*k): n for k, n in sums['k1'].items()},
+            'k2': {launch_key(*k): n for k, n in sums['k2'].items()},
+            'k3': dict(sums['k3']), 'k4': dict(sums['k4'])}
 
 
 def read_cases():
@@ -2765,20 +2765,23 @@ def check_ab(torch, seed, work):
 
 
 def check_profilers(torch):
-    """``step_profile`` at the shipping path's top phase: every stage
-    finite, the critic update with the GP slower than without it (wall
-    and device); ``op_trace`` at phases 3 and 5: the categories sum to the
-    total, and the layout table is not empty."""
+    """``step_profile`` at the shipping path's top phase: a row for every
+    stage span of the shipping step, each finite, the gradient penalty's
+    kernels' device time above 0; ``op_trace`` at phases 3 and 5: the
+    categories sum to the total, and the layout table is not empty."""
     from neuron_gan_tpu_torch.tools import op_trace, step_profile
-    rows, _ = _quiet(step_profile.main, ['--reps', '5'])
-    stages = {r['stage']: r for r in rows[1:]}
-    failed = [name for name, r in stages.items()
-              if not (np.isfinite(r['value']) and r['wall_ms'] > 0
-                      and r['device_ms'] > 0)]
-    gp, no_gp = stages['critic_update_with_gp'], stages['critic_update_no_gp']
-    if not (gp['wall_ms'] > no_gp['wall_ms']
-            and gp['device_ms'] > no_gp['device_ms']):
-        failed.append('the GP costs nothing')
+    rows, _ = _quiet(step_profile.main, ['--reps', '6'])
+    stages = {r['span']: r for r in rows[1:]}
+    failed = sorted({'step.draws', 'step.augment', 'step.critic_fakes',
+                     'step.critic_loss', 'step.grad_penalty',
+                     'step.critic_backward', 'step.critic_adam',
+                     'step.gen_loss', 'step.gen_backward',
+                     'step.gen_adam'} - set(stages))
+    failed += [name for name, r in stages.items()
+               if not all(np.isfinite(r[k]) for k in (
+                   'host_ms', 'idle_ms', 'launches', 'device_ms'))]
+    if not stages.get('step.grad_penalty', {}).get('device_ms', 0) > 0:
+        failed.append('no kernel of the gradient penalty')
     traces = {}
     for phase in (3, 5):
         tr, _ = _quiet(op_trace.main, ['--phase', str(phase)])

@@ -32,10 +32,10 @@ Gradients mirror the JAX package's two custom VJPs:
 The same two Functions run on both devices; only the innermost launch
 differs.  A CPU tensor takes the plain version; a CUDA tensor launches the
 kernel, or raises if the kernel cannot take it -- never a silent fall back.
-``fwd_launches`` and ``bwd_launches`` count kernel launches by (dtype
-name, ``n_groups``), and nothing else; ``launches_by_case`` counts the
-same launches by ('k1' or 'k2', dtype name, x's shape, ``n_groups``), a
-launch of the runtime-width instance as 'k1/runtime' or 'k2/runtime'.
+``launches_by_case`` counts kernel launches, and nothing else, by ('k1'
+or 'k2', dtype name, x's shape, ``n_groups``), a launch of the
+runtime-width instance as 'k1/runtime' or 'k2/runtime';
+``launches_by_kernel`` sums it by kernel, dtype name and ``n_groups``.
 """
 
 import collections
@@ -45,8 +45,6 @@ import torch
 
 from neuron_gan_tpu_torch.runtime import kernels
 
-fwd_launches = collections.Counter()
-bwd_launches = collections.Counter()
 launches_by_case = collections.Counter()
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -221,6 +219,15 @@ def _case(kernel, x, n_groups):
     return kernel, dtype_name(x), tuple(x.shape), n_groups
 
 
+def launches_by_kernel():
+    """{'k1': {(dtype name, n_groups): launches}, 'k2': ...}: the sums of
+    ``launches_by_case`` over shapes and instances."""
+    out = {'k1': collections.Counter(), 'k2': collections.Counter()}
+    for (kernel, dtype, _, n_groups), n in launches_by_case.items():
+        out[kernel.split('/')[0]][dtype, n_groups] += n
+    return out
+
+
 def _check_device(x):
     if x.device.type != 'cuda':
         raise RuntimeError(f'lrelu_pixel_norm has no kernel for device '
@@ -244,7 +251,6 @@ def _fwd(x, n_groups, neg_slope, eps):
             x.data_ptr(), out.data_ptr(), *shape, neg_slope, eps,
             _DTYPE_CODES[x.dtype], stream)
     _raise_on(rc, 'lrelu_pixel_norm forward')
-    fwd_launches[dtype_name(x), n_groups] += 1
     launches_by_case[_case('k1', x, n_groups)] += 1
     return out
 
@@ -261,7 +267,6 @@ def _bwd(x, g, n_groups, neg_slope, eps):
             x.data_ptr(), g.data_ptr(), dx.data_ptr(), *shape, neg_slope,
             eps, _DTYPE_CODES[x.dtype], stream)
     _raise_on(rc, 'lrelu_pixel_norm backward')
-    bwd_launches[dtype_name(x), n_groups] += 1
     launches_by_case[_case('k2', x, n_groups)] += 1
     return dx
 

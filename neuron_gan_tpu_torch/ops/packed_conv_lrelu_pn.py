@@ -46,11 +46,11 @@ x, y, dz and the cotangent of y are float32 or bfloat16; r, its
 cotangent and ``w_packed`` float32; N one of ``KERNEL_WIDTHS``.  A CPU
 tensor takes the plain versions; a CUDA tensor launches the kernels or
 raises if they cannot take it -- never a silent fall back.
-``conv_launches`` and ``dz_launches`` count kernel launches by dtype name,
-and nothing else; one forward launch is the weight split and the conv
-kernel after it.  ``launches_by_case`` counts the same launches by
+``launches_by_case`` counts kernel launches, and nothing else, by
 (kernel, dtype name, y's shape, case): ('k3', ..., None) and ('k4', ...,
-'live' or 'absent' ct_r).
+'live' or 'absent' ct_r); one forward launch is the weight split and the
+conv kernel after it.  ``launches_by_kernel`` sums it by kernel and dtype
+name.
 """
 
 import collections
@@ -64,8 +64,6 @@ import torch.nn.functional as F
 from neuron_gan_tpu_torch.ops.lrelu_pixel_norm import dtype_name
 from neuron_gan_tpu_torch.runtime import kernels
 
-conv_launches = collections.Counter()
-dz_launches = collections.Counter()
 launches_by_case = collections.Counter()
 
 # output widths N both kernels are instantiated for (C = N / 4)
@@ -370,12 +368,20 @@ def conv_fwd_launcher(x, w_packed, neg_slope=0.2, eps=1e-8):
     return launch, y, r
 
 
+def launches_by_kernel():
+    """{'k3': {dtype name: launches}, 'k4': ...}: the sums of
+    ``launches_by_case`` over shapes and cases."""
+    out = {'k3': collections.Counter(), 'k4': collections.Counter()}
+    for (kernel, dtype, _, _), n in launches_by_case.items():
+        out[kernel][dtype] += n
+    return out
+
+
 def _conv_fwd(x, w_packed, neg_slope, eps):
     if x.device.type == 'cpu':
         return packed_conv_lrelu_pn_plain(x, w_packed, neg_slope, eps)
     launch, y, r = conv_fwd_launcher(x, w_packed, neg_slope, eps)
     launch()
-    conv_launches[dtype_name(x)] += 1
     launches_by_case['k3', dtype_name(x), tuple(y.shape), None] += 1
     return y, r
 
@@ -407,7 +413,6 @@ def _dz(y, r, g, ct_r, neg_slope):
             None if ct_r is None else ct_r.data_ptr(), dz.data_ptr(), b, n,
             h * w, neg_slope, _DTYPE_CODES[y.dtype], stream)
     _raise_on(rc, 'packed_conv_lrelu_pn dz')
-    dz_launches[dtype_name(y)] += 1
     launches_by_case['k4', dtype_name(y), tuple(y.shape),
                      'absent' if ct_r is None else 'live'] += 1
     return dz

@@ -1,13 +1,33 @@
 """Device time of a function's kernels on the GPU, and the card's name and
 power limit, for the design, profiling and smoke scripts (chip_smoke.py,
-k4_variants.py, tools/)."""
+k4_variants.py, tools/); and ``span``, the named ranges the training step
+marks its stages with."""
 
+import contextlib
 import subprocess
 import time
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 _flush = {}
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name):
+    """A context manager that marks ``name`` as a range of the host's
+    thread in a torch.profiler trace, on the same clock as the device's
+    kernels; with no profiler recording, one shared ``nullcontext``, so a
+    span costs the hot path one flag read.
+
+    The range is a function-scope record (a ``cpu_op`` event), not
+    ``record_function``'s user scope: for a user-scope range the profiler
+    also writes a copy on the device's timeline, over the kernels the
+    range launched, and a reader of raw events that cannot ask an event's
+    activity type (torch 2.11's) takes that copy for a kernel."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch._C._profiler._RecordFunctionFast(name)
+    return _NO_SPAN
 
 
 def _l2_flush():

@@ -1,29 +1,41 @@
-"""Stage-by-stage timing of one flagship training step (counterpart of the
+"""Stage-by-stage profile of the flagship training step (counterpart of the
 JAX package's tools/step_profile.py).
 
     python -m neuron_gan_tpu_torch.tools.step_profile [--path shipping] \\
         [--phase 5] [--reps 20] [--device cpu]
 
-Times each stage of one step of a ``flagship.PATHS`` configuration (default
-the shipping step) at ``--phase`` (default the top) as its own loop of
-``--reps`` calls: the augmentation, D's forward, G's forward, the critic
-update without the gradient penalty and with it (the GP on fresh fakes,
-or on the critic loss's under the spec's ``gp_reuse_fakes``), and the
-generator update.
-Each call's output feeds a scalar that is read back after the loop, so no
-stage is skipped.  Prints a header line and one JSON line per stage: the
-wall ms a call (CUDA events around the loop, one synchronize; on the CPU
-the host clock) and the device ms a call (the kernels' own durations over
-a second loop, by ``profile_step.py``'s torch.profiler capture; "not
-measured" on the CPU).
+Traces ``--reps`` steps (whole epochs, rounded up) of the real epoch runner
+(``train_step.make_epoch_runner``) of a ``flagship.PATHS`` configuration
+(default the shipping step) at ``--phase`` (default the top), after one
+warm-up epoch, with ``profile_step.py``'s capture, and reads the stage
+spans the step marks itself with (``step.*``, ``runtime/timing.py::span``)
+from the trace.  Prints a header line, then one JSON line per span name,
+in the order the step first opens them, each a step:
+
+* ``host_ms``: the span's duration on the host;
+* ``idle_ms``: the time the device was idle (no kernel, copy or fill)
+  while the span was open;
+* ``launches``: kernel launch calls made while the span was open, on any
+  thread (a backward's come from the autograd engine's device thread);
+* ``device_ms``: the device time of the kernels those launches started,
+  matched by correlation id (the header's ``device_ms_per_step`` is that
+  of every kernel of the window).
+
+On the CPU the last three read "not measured".
 """
 
 import argparse
+import bisect
 import json
-import time
+import math
 
 import numpy as np
 import torch
+
+LAUNCH_CALLS = ('cudaLaunchKernel', 'cudaLaunchKernelExC', 'cuLaunchKernel',
+                'cuLaunchKernelEx', 'cudaLaunchCooperativeKernel',
+                'cudaGraphLaunch', 'cuGraphLaunch')
+NOT_MEASURED = 'not measured'
 
 
 def parse_args(argv=None):
@@ -37,144 +49,98 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def stages(cfg, spec, device, seed=0):
-    """{stage: fn}, each fn one call of the stage returning a scalar
-    tensor, on a state from random weights (``seed``) and random inputs:
-    the raw padded batch for the augmentation, images at the phase's
-    resolution for the rest."""
-    from neuron_gan_tpu_torch.data.augment import augment_batch, draw_augment
-    from neuron_gan_tpu_torch.losses import d_grad_pen_loss, d_w_loss, g_w_loss
-    from neuron_gan_tpu_torch.models import DiscriminatorPG, GeneratorPG
-    from neuron_gan_tpu_torch.train_step import (
-        _augment_spec, _grads_into, _set_lr, init_train_state)
-    from neuron_gan_tpu_torch.utils.latents import sample_latent_vec
-
-    init = torch.Generator().manual_seed(seed)
-    state = init_train_state(GeneratorPG(cfg, init, device=device),
-                             DiscriminatorPG(cfg, init, device=device),
-                             spec.beta1)
-    _set_lr(state.d_opt, spec.lr0)
-    _set_lr(state.g_opt, spec.lr0)
-    b, res = spec.batch_size, cfg.resolution(spec.phase)
-    pad = spec.crop_size + spec.crop_size // 2      # the loader's padded frame
-    gen = np.random.default_rng(seed)
-    raw = torch.from_numpy(gen.random((b, pad, pad, 1)).astype(np.float32)).to(device)
-    imgs = torch.from_numpy(gen.random((b, 1, res, res)).astype(np.float32)
-                            * 2 - 1).to(device)
-    aug_spec = _augment_spec(cfg, spec)
-    rng = torch.Generator(device=device).manual_seed(seed + 1)
-    d_params, g_params = list(state.d.parameters()), list(state.g.parameters())
-
-    def g_apply(z):
-        return state.g(z, spec.phase)
-
-    def d_apply(x):
-        return state.d(x, spec.phase)
-
-    def z():
-        return sample_latent_vec(rng, (b, spec.latent_dim))
-
-    def augment():
-        return augment_batch(raw, draw_augment(rng, b, pad, aug_spec),
-                             aug_spec).sum()
-
-    def d_forward():
-        # a perturbed input, so no call can reuse another's result
-        with torch.no_grad():
-            return d_apply(imgs + torch.rand((), generator=rng, device=device)
-                           * 1e-6).float().sum()
-
-    def g_forward():
-        with torch.no_grad():
-            return g_apply(z()).float().sum()
-
-    def critic_update(with_gp):
-        # the GP's fakes as the step draws them: fresh, or the critic
-        # loss's under spec.gp_reuse_fakes
-        z1, z2 = z(), z()
-        eps = torch.rand(b, generator=rng, device=device)
-        with torch.no_grad():
-            fake = g_apply(z1)
-        loss, _ = d_w_loss(d_apply, imgs, fake, spec.drift_epsilon)
-        if with_gp:
-            if not spec.gp_reuse_fakes:
-                with torch.no_grad():
-                    fake = g_apply(z2)
-            loss = loss + d_grad_pen_loss(d_apply, imgs, fake, eps,
-                                          spec.gp_lambda)
-        _grads_into(loss, d_params)
-        state.d_opt.step()
-        return loss.detach()
-
-    def gen_update():
-        loss, _ = g_w_loss(g_apply, d_apply, z())
-        _grads_into(loss, g_params)
-        state.g_opt.step()
-        return loss.detach()
-
-    return {f'augment{"_fast" if spec.fast_augment else ""}': augment,
-            'd_forward': d_forward, 'g_forward': g_forward,
-            'critic_update_no_gp': lambda: critic_update(False),
-            'critic_update_with_gp': lambda: critic_update(True),
-            'gen_update': gen_update}
+def _union(intervals):
+    """Sorted disjoint [start, end] lists covering ``intervals``."""
+    out = []
+    for s, e in sorted(intervals):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
 
 
-def stage_device_ms(fn, reps):
-    """Device ms a call of ``fn`` over a loop of ``reps`` calls: the
-    summed durations of the kernels it launches, as torch.profiler reads
-    them (``profile_step.py``'s capture; a stage's data stays in the L2
-    cache between its own kernels, as in a training loop)."""
-    from neuron_gan_tpu_torch.profile_step import _device_us, _trace
-    prof, _ = _trace(lambda: [fn() for _ in range(reps)], record_shapes=False)
-    us = sum(_device_us(e) for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if us <= 0:
-        raise RuntimeError('torch.profiler saw no kernel of the stage')
-    return us / reps / 1e3
+def stage_totals(events):
+    """({span name: [host ns, idle ns, launches, device ns]}, device ns of
+    every kernel) over a trace's raw kineto events, the names in the order
+    the spans first open.  Every device event is a kernel, a copy or a
+    fill (torch 2.11's events carry no activity type: copies and fills
+    are told by name); a kernel and its launch share a correlation id."""
+    spans, busy, launches, kernels = [], [], [], []
+    for e in events:
+        name, s, d = e.name(), e.start_ns(), e.duration_ns()
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            busy.append((s, s + d))
+            if not name.startswith(('Memcpy', 'Memset')):
+                kernels.append((e.correlation_id(), d))
+        elif name.startswith('step.'):
+            spans.append((s, s + d, name))
+        elif name.startswith(LAUNCH_CALLS):
+            launches.append((s, e.correlation_id()))
+    spans.sort()
+    starts = [s for s, _, _ in spans]
+    busy = _union(busy)
+    ends = [e for _, e in busy]
+    out = {}
+    for s, e, name in spans:
+        row = out.setdefault(name, [0, 0, 0, 0])
+        covered = sum(min(b1, e) - max(b0, s)
+                      for b0, b1 in busy[bisect.bisect_right(ends, s):]
+                      if b0 < e)
+        row[0] += e - s
+        row[1] += e - s - covered
 
+    def span_at(t):
+        i = bisect.bisect_right(starts, t) - 1
+        return spans[i][2] if i >= 0 and spans[i][1] >= t else None
 
-def time_stage(fn, reps, cuda):
-    """(wall ms a call, device ms a call or None, the read-back scalar)."""
-    acc = fn().float()                      # warm-up call
-    if cuda:
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        acc = acc + fn().float()
-    if cuda:
-        end.record()
-    value = acc.item()
-    wall_ms = (start.elapsed_time(end) if cuda
-               else (time.perf_counter() - t0) * 1e3) / reps
-    dev_ms = stage_device_ms(fn, reps) if cuda else None
-    return wall_ms, dev_ms, value
+    launched = {}
+    for t, corr in launches:
+        name = span_at(t)
+        if name is not None:
+            out[name][2] += 1
+            launched[corr] = name
+    for corr, d in kernels:
+        if corr in launched:
+            out[launched[corr]][3] += d
+    return out, sum(d for _, d in kernels)
 
 
 def run(args):
-    """One dict a stage (and the header first)."""
+    """The header, then one dict a span name."""
     from neuron_gan_tpu_torch.flagship import PATHS
-    from neuron_gan_tpu_torch.runtime import precision_scope, resolve_device
+    from neuron_gan_tpu_torch.profile_step import SEED, _trace, warm_runner
+    from neuron_gan_tpu_torch.runtime import resolve_device
     from neuron_gan_tpu_torch.runtime.timing import nvidia_smi_line
 
     device = resolve_device(args.device)
     cuda = device.type == 'cuda'
     make, chunk_spec = PATHS[args.path]
     cfg = make()
-    spec = chunk_spec(cfg.n_phases - 1 if args.phase is None else args.phase)
-    out = [{'path': args.path, 'phase': spec.phase,
-            'resolution': cfg.resolution(spec.phase),
-            'batch': spec.batch_size, 'reps': args.reps,
+    phase = cfg.n_phases - 1 if args.phase is None else args.phase
+    # the flagship's padded stack (512 + 2 * 128), as op_trace's
+    images = torch.from_numpy(np.random.default_rng(SEED).random(
+        (16, 768, 768, 1)).astype(np.float32)).to(device)
+    epochs, steps = warm_runner(cfg, chunk_spec, images, phase)
+    n_epochs = math.ceil(args.reps / steps)
+    prof, wall_us = _trace(epochs(2, n_epochs), record_shapes=False,
+                           cuda=cuda)
+    n_steps = steps * n_epochs
+    out = [{'path': args.path, 'phase': phase,
+            'resolution': cfg.resolution(phase),
+            'batch': chunk_spec(phase).batch_size, 'steps': n_steps,
+            'wall_ms_per_step': wall_us / n_steps / 1e3,
             'device': torch.cuda.get_device_name(device) if cuda else 'cpu',
             'nvidia_smi': nvidia_smi_line() if cuda else None}]
-    with precision_scope(cfg.precision):
-        for name, fn in stages(cfg, spec, device).items():
-            wall_ms, dev_ms, value = time_stage(fn, args.reps, cuda)
-            out.append({'stage': name, 'wall_ms': wall_ms,
-                        'device_ms': dev_ms if cuda else 'not measured',
-                        'value': value})
+    per_step = 1e6 * n_steps
+    stages, kernel_ns = stage_totals(prof.profiler.kineto_results.events())
+    if cuda:
+        out[0]['device_ms_per_step'] = kernel_ns / per_step
+    for name, (host, idle, n, dev) in stages.items():
+        out.append({'span': name, 'host_ms': host / per_step,
+                    'idle_ms': idle / per_step if cuda else NOT_MEASURED,
+                    'launches': n / n_steps if cuda else NOT_MEASURED,
+                    'device_ms': dev / per_step if cuda else NOT_MEASURED})
     return out
 
 

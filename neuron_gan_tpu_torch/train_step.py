@@ -36,6 +36,7 @@ from neuron_gan_tpu_torch.losses import (
 from neuron_gan_tpu_torch.models import (
     DiscriminatorPG, GeneratorPG, PGConfig, precision_scope)
 from neuron_gan_tpu_torch.parallel.mesh import ShardedState
+from neuron_gan_tpu_torch.runtime.timing import span
 from neuron_gan_tpu_torch.schedule import TrainSchedule
 from neuron_gan_tpu_torch.utils.latents import sample_latent_vec
 
@@ -284,8 +285,9 @@ def make_batch_step(cfg: PGConfig, spec: ChunkSpec, grid=None):
         def d_apply(x):
             return state.d(x, spec.phase, a)
 
-        images = (augment_batch(raw_batch, draws['augment'], aug_spec)
-                  if b else None)
+        with span('step.augment'):
+            images = (augment_batch(raw_batch, draws['augment'], aug_spec)
+                      if b else None)
         d_params = list(state.d.parameters())
         g_params = list(state.g.parameters())
         _set_lr(state.d_opt, lr)
@@ -293,19 +295,21 @@ def make_batch_step(cfg: PGConfig, spec: ChunkSpec, grid=None):
         zero = torch.zeros((), device=raw_batch.device)
 
         def d_total_loss(z1, z2, eps):
-            with torch.no_grad():
+            with torch.no_grad(), span('step.critic_fakes'):
                 fake = g_apply(z1)
-            loss_w, (sr, sf) = d_w_loss(d_apply, images, fake,
-                                        spec.drift_epsilon)
+            with span('step.critic_loss'):
+                loss_w, (sr, sf) = d_w_loss(d_apply, images, fake,
+                                            spec.drift_epsilon)
             gp = zero
             if spec.gp_lambda > 0:
                 # z2 is z1 under gp_reuse_fakes: the critic loss's fake
                 # batch is the penalty's too (the JAX package's CSE)
                 if z2 is not z1:
-                    with torch.no_grad():
+                    with torch.no_grad(), span('step.critic_fakes'):
                         fake = g_apply(z2)
-                gp = d_grad_pen_loss(d_apply, images, fake, eps,
-                                     spec.gp_lambda, remat=spec.gp_remat)
+                with span('step.grad_penalty'):
+                    gp = d_grad_pen_loss(d_apply, images, fake, eps,
+                                         spec.gp_lambda, remat=spec.gp_remat)
             return loss_w + gp, (sr, sf, gp)
 
         shards = state.shards
@@ -333,38 +337,43 @@ def make_batch_step(cfg: PGConfig, spec: ChunkSpec, grid=None):
         for j in range(spec.n_critic):
             if b:
                 d_loss, (sr, sf, gp) = d_total_loss(*draws['critic'][j])
-            grads_into(d_loss, d_params, d_net)
-            opt_step(state.d_opt, d_net)
+            with span('step.critic_backward'):
+                grads_into(d_loss, d_params, d_net)
+            with span('step.critic_adam'):
+                opt_step(state.d_opt, d_net)
         if spec.n_critic == 0 and b:
             # loss computed for monitoring only (reference train.py:369-372)
             d_loss, (sr, sf, gp) = d_total_loss(*draws['critic'][0])
 
-        g_loss = zero
-        if b:
-            g_loss, z = g_w_loss(g_apply, d_apply, draws['zg'])
-        g_sim = zero
-        if spec.sim_lambda0 > 0:
-            if grid is None:
-                sim_images, sim_z = images, z
-            else:
-                # pairwise over the global batch: its rows from every rank
-                res = cfg.resolution(spec.phase)
-                sim_images = grid.gather_rows(
-                    images.reshape(b, -1) if b else
-                    raw_batch.new_zeros((0, cfg.n_colors * res * res)), batch)
-                sim_z = grid.gather_rows(
-                    z.reshape(b, -1) if b else
-                    raw_batch.new_zeros((0, spec.latent_dim)), batch)
-            g_sim = similarity_loss(sim_images, sim_z, 1.0) * sim_lam
-            g_loss = g_loss + g_sim
-        grads_into(g_loss, g_params, g_net)
-        opt_step(state.g_opt, g_net)
+        g_loss = g_sim = zero
+        with span('step.gen_loss'):
+            if b:
+                g_loss, z = g_w_loss(g_apply, d_apply, draws['zg'])
+            if spec.sim_lambda0 > 0:
+                if grid is None:
+                    sim_images, sim_z = images, z
+                else:
+                    # pairwise over the global batch: its rows from every rank
+                    res = cfg.resolution(spec.phase)
+                    sim_images = grid.gather_rows(
+                        images.reshape(b, -1) if b else
+                        raw_batch.new_zeros((0, cfg.n_colors * res * res)),
+                        batch)
+                    sim_z = grid.gather_rows(
+                        z.reshape(b, -1) if b else
+                        raw_batch.new_zeros((0, spec.latent_dim)), batch)
+                g_sim = similarity_loss(sim_images, sim_z, 1.0) * sim_lam
+                g_loss = g_loss + g_sim
+        with span('step.gen_backward'):
+            grads_into(g_loss, g_params, g_net)
+        with span('step.gen_adam'):
+            opt_step(state.g_opt, g_net)
 
         if spec.ema_beta > 0:
             # elementwise: under a model axis on this rank's slices
             pairs = (zip(state.g_ema.parameters(), g_params) if shards is None
                      else zip(shards.g_ema, shards.g.local))
-            with torch.no_grad():
+            with torch.no_grad(), span('step.ema'):
                 for e, p in pairs:
                     e.mul_(spec.ema_beta).add_(p, alpha=1.0 - spec.ema_beta)
         stats = torch.stack([sr, sf, d_loss, g_loss, gp, g_sim]).detach()
@@ -425,7 +434,8 @@ def make_epoch_runner(cfg: PGConfig, spec: ChunkSpec, n_epochs: int,
                     rows = slice(start + lo, start + hi)
                 raw = (images_stack[order[rows]] if order is not None
                        else images_stack[rows])
-                draws = batch_draws(rng, cfg, spec, b, frame, grid)
+                with span('step.draws'):
+                    draws = batch_draws(rng, cfg, spec, b, frame, grid)
                 total = total + step(state, raw, draws, alpha, lr, lam, b)
             totals.append(total)
         return epoch_stats(totals, spec, grid)

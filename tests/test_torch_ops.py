@@ -7,6 +7,8 @@ tolerances of tests/test_pallas_kernels.py (rtol 1e-5 / atol 1e-6 forward,
 1e-4 / 1e-5 for gradients).
 """
 
+import collections
+
 import numpy as np
 import pytest
 
@@ -424,8 +426,22 @@ def test_epilogue_refuses_a_device_without_kernel():
 
 
 def test_cpu_launch_does_not_count():
-    counters = (lpn.fwd_launches, lpn.bwd_launches, lpn.launches_by_case)
-    before = [dict(c) for c in counters]
+    def counters():
+        sums = lpn.launches_by_kernel()
+        return [dict(sums['k1']), dict(sums['k2']),
+                dict(lpn.launches_by_case)]
+    before = counters()
     x = torch.from_numpy(rand((1, 4, 2, 2), 8)).requires_grad_()
     port_epilogue(1)(x).sum().backward()
-    assert [dict(c) for c in counters] == before
+    assert counters() == before
+
+
+def test_launches_by_kernel_sums_the_cases(monkeypatch):
+    cases = {('k1', 'bfloat16', (8, 64, 32, 32), 4): 3,
+             ('k1', 'bfloat16', (8, 64, 16, 16), 4): 2,
+             ('k1/runtime', 'float32', (8, 24, 8, 8), 1): 1,
+             ('k2', 'bfloat16', (8, 64, 32, 32), 8): 5}
+    monkeypatch.setattr(lpn, 'launches_by_case', collections.Counter(cases))
+    assert lpn.launches_by_kernel() == {
+        'k1': {('bfloat16', 4): 5, ('float32', 1): 1},
+        'k2': {('bfloat16', 8): 5}}

@@ -13,6 +13,8 @@ The forward kernel's compact weights, tap formulation and 3xTF32 numerics
 are held here too, since the kernel itself runs only on the card.
 """
 
+import collections
+
 import numpy as np
 import pytest
 
@@ -409,13 +411,25 @@ def test_fused_conv_refuses_a_device_without_kernel():
 
 
 def test_cpu_launches_do_not_count():
-    before = [dict(c) for c in (pcl.conv_launches, pcl.dz_launches,
-                                pcl.launches_by_case)]
+    def counters():
+        sums = pcl.launches_by_kernel()
+        return [dict(sums['k3']), dict(sums['k4']),
+                dict(pcl.launches_by_case)]
+    before = counters()
     x, wp = conv_case(seed=60)
     xt = nchw(x).requires_grad_()
     port_pair(xt, oihw(wp))[0].sum().backward()
-    assert [dict(c) for c in (pcl.conv_launches, pcl.dz_launches,
-                              pcl.launches_by_case)] == before
+    assert counters() == before
+
+
+def test_launches_by_kernel_sums_the_cases(monkeypatch):
+    cases = {('k3', 'bfloat16', (8, 64, 128, 128), None): 4,
+             ('k3', 'float32', (8, 64, 128, 128), None): 1,
+             ('k4', 'bfloat16', (8, 64, 128, 128), 'absent'): 2,
+             ('k4', 'bfloat16', (8, 64, 64, 64), 'live'): 3}
+    monkeypatch.setattr(pcl, 'launches_by_case', collections.Counter(cases))
+    assert pcl.launches_by_kernel() == {
+        'k3': {'bfloat16': 4, 'float32': 1}, 'k4': {'bfloat16': 5}}
 
 
 # ---------------------------------------------------------------------------
