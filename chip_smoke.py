@@ -26,7 +26,9 @@ Phases, each printing one JSON line:
               with WGAN-GP + drift through the epoch runner under a
               schedule that visits every phase and fade-in and ends at
               steady 512^2; stats must be finite and every kernel's launch
-              counter must rise by exactly the count the path implies (by
+              counter must rise by exactly the count the path implies for
+              the steps that ran eagerly and the CUDA graphs' captures
+              (a replay's kernels are checked in the graphs phase) (by
               dtype, K1/K2 also by grouping; over the steady steps every
               kernel also by shape, and K4 by live or absent r cotangent),
               and K1/K2 launch only their template instances;
@@ -35,7 +37,8 @@ Phases, each printing one JSON line:
    bench      the port's benchmark CLI (``neuron_gan_tpu_torch.bench``):
               its headline in this process (the shipping step, steady
               512^2, 5 windows of 10 epochs): K1-K4 launched exactly as
-              the steps it ran imply (G forwards of ``step_passes(
+              the steps it ran eagerly or captured imply, most steps
+              replayed (G forwards of ``step_passes(
               gp_reuse_fakes=True)``), ``hbm_roofline_pct`` <= 100 and the
               step's bytes counted alike from the kernel and the plain
               configuration; the headline again in a new process (its one
@@ -62,8 +65,9 @@ Phases, each printing one JSON line:
               flagship stack, resident (twice) and streamed from the host
               (``streaming.run_epochs_streaming``, one batch a group: what
               a 16 MB budget gives): stats and parameters as close to the
-              resident run as the second resident run is, a planted fault
-              (groups swapped) outside that, equal launch counts; then a
+              resident run as the second resident run is (all eager), a
+              planted fault (groups swapped) outside that, equal launch
+              counts; then a
               train-CLI session with hbm_budget_mb=16 (``check_stream``);
    dp         two ranks sharing the card over gloo, 4 rows each of one
               shipping 512^2 step: reduced gradients against the 1-process
@@ -98,6 +102,16 @@ Phases, each printing one JSON line:
               at C_g 8 launched, no runtime-width instance, 0 < d_ema <
               d_raw, the .npz and the -ema grid; then one 1024^2 step by
               ``parity`` at the shipping bound (``check_stretch``);
+   graphs     the shipping and packed paths' steady 512^2 chunk of 8 steps
+              through the epoch runner (3 eager, a capture, replays of its
+              CUDA graph) against the same chunk run eagerly, cuDNN
+              deterministic: stats, parameters, last gradients and Adam
+              moments within GRAPH_BOUND (or, where two eager runs differ,
+              3x their distance); then 2 epochs of replays under
+              torch.profiler: no launch counted by a wrapper, and K1-K4 in
+              the device trace by kernel name as often a step as
+              ``steady_step_sites`` says (``check_step_graphs``; it opens a
+              profiler session, so it runs after every steps/s window);
 4. kernels    each kernel against its plain PyTorch version on the card, in
               float32 and in bfloat16, at every shape a training path gives
               it (plus ragged cases): forward, backward and a GP-style
@@ -184,6 +198,7 @@ cards, and then prints every card's nvidia-smi line and the same last line:
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import importlib.util
 import json
@@ -1095,6 +1110,45 @@ def read_cases():
     return lpn.launches_by_case + pcl.launches_by_case
 
 
+@contextlib.contextmanager
+def graph_replays():
+    """Counts, by phase, the batch steps the epoch runners replay from a
+    CUDA graph captured at an earlier step (``train_step.StepGraphs``).
+    Their kernels run without passing through the wrappers, whose
+    counters hold the eager steps' launches and each capture's, once."""
+    from neuron_gan_tpu_torch import train_step as ts
+    real = ts.StepGraphs.run
+    replays = collections.Counter()
+
+    def run(self, key, *args):
+        before = ts.step_graphs['replayed'] - ts.step_graphs['captured']
+        out = real(self, key, *args)
+        replays[key[0]] += (ts.step_graphs['replayed']
+                            - ts.step_graphs['captured'] - before)
+        return out
+
+    with mock.patch.object(ts.StepGraphs, 'run', run):
+        yield replays
+
+
+def launched_phases(phases, replays):
+    """``phases`` (one a batch step) less the ``replays`` (``graph_replays``):
+    the phases of the steps whose launches the wrappers counted."""
+    left = collections.Counter(phases)
+    left.subtract(replays)
+    assert all(n >= 0 for n in left.values()), (left, replays)
+    return sorted(left.elements())
+
+
+def _chunk_record(spec, start, end, stats, t0, name):
+    stats = stats.cpu().numpy()
+    assert np.isfinite(stats).all(), (name, start, stats)
+    return {'epochs': [start, end], 'phase': spec.phase,
+            'fading': spec.fading,
+            'seconds': round(time.perf_counter() - t0, 3),
+            'D_loss': stats[:, 2].tolist()}
+
+
 def train(torch, seed, cfg, name):
     from neuron_gan_tpu_torch.data import augment
     from neuron_gan_tpu_torch.models import DiscriminatorPG, GeneratorPG
@@ -1122,18 +1176,15 @@ def train(torch, seed, cfg, name):
     augment.shear_fallbacks.clear()
     chunks, step_phases = [], []
     t_run = time.perf_counter()
-    for start, end in sched.plan_chunks(1, sched.n_epochs + 1):
-        spec = spec_for_chunk(sched, start, base)
-        t0 = time.perf_counter()
-        stats = make_epoch_runner(cfg, spec, end - start + 1)(
-            state, images, rng, start)
-        stats = stats.cpu().numpy()
-        assert np.isfinite(stats).all(), (name, start, stats)
-        chunks.append({'epochs': [start, end], 'phase': spec.phase,
-                       'fading': spec.fading,
-                       'seconds': round(time.perf_counter() - t0, 3),
-                       'D_loss': stats[:, 2].tolist()})
-        step_phases += [spec.phase] * steps_per_epoch * (end - start + 1)
+    with graph_replays() as replays:
+        for start, end in sched.plan_chunks(1, sched.n_epochs + 1):
+            spec = spec_for_chunk(sched, start, base)
+            t0 = time.perf_counter()
+            stats = make_epoch_runner(cfg, spec, end - start + 1)(
+                state, images, rng, start)
+            chunks.append(_chunk_record(spec, start, end, stats, t0, name))
+            step_phases += ([spec.phase] * steps_per_epoch
+                            * (end - start + 1))
     schedule_s = time.perf_counter() - t_run
     assert chunks[-1]['phase'] == cfg.n_phases - 1 and not chunks[-1]['fading']
 
@@ -1143,20 +1194,25 @@ def train(torch, seed, cfg, name):
     before = read_cases()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    stats = run(state, images, rng, sched.n_epochs + 1).cpu().numpy()
+    with graph_replays() as steady_replays:
+        stats = run(state, images, rng, sched.n_epochs + 1).cpu().numpy()
     dt = time.perf_counter() - t0
     assert np.isfinite(stats).all(), (name, stats)
-    step_phases += [spec.phase] * steps_per_epoch * n_timed_epochs
-    launches = read_counters()
-    want = expected_launches(cfg, step_phases)
-    assert launches == want, (name, launches, want)
-    # every kernel per steady step by shape and case (K1/K2: grouping;
-    # K4: r's cotangent live or absent), against the path's launch sites
-    # (which the CPU tests hold against expected_launches)
     n_steady = steps_per_epoch * n_timed_epochs
+    replays.update(steady_replays)
+    step_phases += [spec.phase] * n_steady
+    # the wrappers count the eager steps and the captures (a replay's
+    # kernels are read from a trace in the graphs phase)
+    launches = read_counters()
+    want = expected_launches(cfg, launched_phases(step_phases, replays))
+    assert launches == want, (name, launches, want)
+    # every kernel per counted steady step by shape and case (K1/K2:
+    # grouping; K4: r's cotangent live or absent), against the path's
+    # launch sites (which the CPU tests hold against expected_launches)
+    n_counted = n_steady - steady_replays[spec.phase]
     steady = read_cases()
     steady.subtract(before)
-    per_step = {key: n / n_steady for key, n in steady.items() if n}
+    per_step = {key: n / n_counted for key, n in steady.items() if n}
     dt_name = str(cfg.dtype).removeprefix('torch.')
     want_sites = {(k, dt_name, shape, case): float(n)
                   for (k, shape, case), n in steady_step_sites(name).items()}
@@ -1173,6 +1229,7 @@ def train(torch, seed, cfg, name):
     return {
         'phase': 'train', 'path': name, 'chunks': chunks,
         'steps': len(step_phases),
+        'graph_replays': dict(replays),
         'schedule_seconds': round(schedule_s, 3),
         'steady_512_steps': steps_per_epoch * n_timed_epochs,
         'steady_512_steps_per_s': steps_per_epoch * n_timed_epochs / dt,
@@ -1241,10 +1298,15 @@ def check_bench(torch):
     cfg, spec = bench.train_setup()
     roofline = {}
     reset_counters()
-    head = bench.bench_train(cfg, spec, windows=5, roofline=roofline)
+    with graph_replays() as replays:
+        head = bench.bench_train(cfg, spec, windows=5, roofline=roofline)
     launches = read_counters()
-    want = expected_launches(cfg, [spec.phase] * head['steps'], passes=passes)
+    want = expected_launches(cfg, launched_phases(
+        [spec.phase] * head['steps'], replays), passes=passes)
     assert launches == want, (launches, want)
+    # the steps after the first window's captures are replayed
+    assert head['step_graphs'].get('captured') and \
+        head['step_graphs']['replayed'] > head['steps'] // 2, head
     assert roofline['hbm_gb_per_step'] > 0, roofline
     assert 0 <= roofline['hbm_roofline_pct'] <= 100, roofline
     raw = bench.synthetic_stack(spec.batch_size, bench.FRAME,
@@ -1255,19 +1317,21 @@ def check_bench(torch):
     in_process = {k: head[k] for k in ('value', 'min', 'max', 'windows',
                                        'steps')}
     in_process.update(roofline, step_bytes=head['step_bytes'],
-                      launches=launches)
+                      launches=launches, step_graphs=head['step_graphs'])
 
     cli = _finite_rate(bench_subprocess([]))
     assert cli['metric'] == 'wgan_gp_train_steps_per_sec_512', cli
     assert len(cli['windows']) == 5 and cli['hbm_roofline_pct'] <= 100, cli
 
     reset_counters()
-    low = _finite_rate(bench_line(['--phase', '2']))
+    with graph_replays() as replays:
+        low = _finite_rate(bench_line(['--phase', '2']))
     assert low['metric'] == 'wgan_gp_train_steps_per_sec_64', low
     cfg2, spec2 = bench.train_setup(phase=2)
     # the warm-up window and the default 5
     n2 = (1 + 5) * bench.N_EPOCHS_CHUNK * spec2.n_full_batches
-    assert read_counters() == expected_launches(cfg2, [2] * n2, passes=passes)
+    assert read_counters() == expected_launches(
+        cfg2, launched_phases([2] * n2, replays), passes=passes)
 
     evals = {}
     for fast in (False, True):
@@ -1652,9 +1716,11 @@ def check_stream(torch, seed):
             stats = streaming.run_epochs_streaming(
                 cfg, spec, state, host, rng, 1, n_epochs, max_group)
         else:
+            # eager, as the streamed steps are (the graphs phase holds the
+            # runner's replayed steps to its eager ones)
             images = torch.from_numpy(host).to('cuda')
-            stats = make_epoch_runner(cfg, spec, n_epochs)(state, images,
-                                                           rng, 1)
+            stats = make_epoch_runner(cfg, spec, n_epochs, capture=False)(
+                state, images, rng, 1)
         stats = stats.cpu().double()
         secs = time.perf_counter() - t0
         assert torch.isfinite(stats).all(), stats
@@ -2631,14 +2697,17 @@ def check_stretch(torch, seed, work):
     n_samples = 4
 
     reset_counters()
-    result, state = s1k.run(args)
+    with graph_replays() as replays:
+        result, state = s1k.run(args)
     torch.cuda.synchronize()
     launches, cases = read_counters(), read_cases()
     del state
     dt = str(cfg.dtype).removeprefix('torch.')
-    want = _add_counts(expected_launches(cfg, [top] * n_steps),
+    # the wrappers count the eager steps and the captures, not the replays
+    counted = launched_phases([top] * n_steps, replays)
+    want = _add_counts(expected_launches(cfg, counted),
                        expected_launches(cfg, [top], passes=SAMPLE_PASSES))
-    per_step = per_step_sites(cases, dt, n_steps,
+    per_step = per_step_sites(cases, dt, len(counted),
                               step_sites(cfg, top, n_samples, SAMPLE_PASSES))
     want_per_step = {key: float(n) for key, n in
                      step_sites(cfg, top, args.batch).items()}
@@ -2653,6 +2722,7 @@ def check_stretch(torch, seed, work):
                  raw, 'stretch')
     out = {'phase': 'stretch', 'nvidia_smi': nvidia_smi_line(),
            'resolution': res, 'batch': args.batch, 'steps': n_steps,
+           'graph_replays': dict(replays),
            'steps_per_s': result['value'], 'timed_steps': result['steps'],
            'timed_seconds': result['seconds'],
            'peak_mem_gib': result['peak_mem_gib'],
@@ -2681,6 +2751,118 @@ def check_stretch(torch, seed, work):
 
 
 # ---------------------------------------------------------------------------
+# phase graphs: the steady step replayed from its CUDA graph
+# ---------------------------------------------------------------------------
+
+# relative L2 of a replayed chunk to the same chunk run eagerly, cuDNN
+# deterministic, where two eager runs agree bit for bit (the shipping
+# path); a float32 path's bilinear upsample (F.interpolate) accumulates its
+# gradient with atomics, so there the bound is 3x the eager runs' distance
+GRAPH_BOUND = 1e-5
+# each kernel's name in a device trace (csrc/), and the kernel whose
+# launches it follows: K3 splits its weights, then convolves
+GRAPH_KERNELS = {'lrelu_pn_fwd_kernel': 'k1', 'lrelu_pn_bwd_kernel': 'k2',
+                 'split_weights_kernel': 'k3', 'packed_conv_fwd_kernel': 'k3',
+                 'packed_dz_kernel': 'k4'}
+
+
+def check_step_graphs(torch, seed, name, n_epochs=4, n_traced=2):
+    """A steady 512^2 chunk of path ``name`` through the epoch runner, which
+    replays it from its CUDA graph after 3 eager steps and a capture,
+    against the same chunk run eagerly (``capture=False``) from the same
+    parameters, draws and capturable optimizers, cuDNN deterministic: every
+    epoch's stats, both nets' parameters, their last gradients and Adam
+    moments within GRAPH_BOUND, or within 3x the distance between two
+    eager runs where they differ.  Then ``n_traced`` epochs of replays
+    under torch.profiler: the wrappers count no launch, and the device
+    trace holds each of K1-K4 by name as often a step as
+    ``steady_step_sites`` says."""
+    from neuron_gan_tpu_torch import train_step as ts
+    from neuron_gan_tpu_torch.models import DiscriminatorPG, GeneratorPG
+    make, chunk = PATHS[name]
+    cfg = make()
+    spec = chunk(cfg.n_phases - 1)
+    images = torch.from_numpy(np.random.default_rng(seed + 5).random(
+        (spec.n_images, 768, 768, 1)).astype(np.float32)).to('cuda')
+
+    def one_run(capture):
+        init = torch.Generator().manual_seed(seed)
+        state = ts.init_train_state(GeneratorPG(cfg, init, device='cuda'),
+                                    DiscriminatorPG(cfg, init, device='cuda'))
+        for opt in (state.d_opt, state.g_opt):
+            ts._capturable(opt, True)
+        rng = torch.Generator(device='cuda').manual_seed(seed)
+        before = collections.Counter(ts.step_graphs)
+        stats = ts.make_epoch_runner(cfg, spec, n_epochs, capture=capture)(
+            state, images, rng, 1)
+        out = {'stats': [stats.cpu()], **_state_of(state),
+               'D_grads': [p.grad.cpu() for p in state.d.parameters()],
+               'G_grads': [p.grad.cpu() for p in state.g.parameters()],
+               'step_graphs': dict(ts.step_graphs - before)}
+        return out, state, rng
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        eager, _, _ = one_run(False)
+        eager_again, _, _ = one_run(False)
+        graphed, state, rng = one_run(True)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    keys = ('stats', 'D', 'G', 'D_grads', 'G_grads', 'D_moments', 'G_moments')
+    dist = {k: rel_l2(graphed[k], eager[k]) for k in keys}
+    twins = {k: rel_l2(eager_again[k], eager[k]) for k in keys}
+
+    # replays only, traced
+    n_steps = n_traced * spec.n_full_batches
+    run = ts.make_epoch_runner(cfg, spec, n_traced)
+    reset_counters()
+    before = collections.Counter(ts.step_graphs)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        stats = run(state, images, rng, 1 + n_epochs)
+        torch.cuda.synchronize()
+    traced_graphs = dict(ts.step_graphs - before)
+    counted = {str(k): n for k, n in read_cases().items() if n}
+    kernels = collections.Counter()
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            kernels[e.name()] += 1
+    by_name = {k: sum(n for full, n in kernels.items() if k in full) / n_steps
+               for k in GRAPH_KERNELS}
+    sites = collections.Counter()
+    for (k, _, _), n in steady_step_sites(name).items():
+        sites[k] += n
+    want = {k: float(sites[kernel]) for k, kernel in GRAPH_KERNELS.items()}
+    out = {'phase': 'graphs', 'path': name, 'resolution': cfg.image_size_max,
+           'steps': n_epochs * spec.n_full_batches, 'bound': GRAPH_BOUND,
+           'rel_l2': dist, 'rel_l2_eager_twins': twins,
+           'step_graphs': graphed['step_graphs'],
+           'traced_steps': n_steps, 'traced_step_graphs': traced_graphs,
+           'traced_counted_launches': counted,
+           'traced_kernels_per_step': by_name, 'want_per_step': want,
+           'traced_kernels_total': sum(kernels.values()),
+           'traced_stats_finite': bool(torch.isfinite(stats).all())}
+    failed = [k for k, d in dist.items()
+              if not (d <= GRAPH_BOUND or d <= 3 * twins[k])]
+    if graphed['step_graphs'] != {'eager:warmup': 3, 'captured': 1,
+                                  'replayed': out['steps'] - 3}:
+        failed.append('the chunk did not capture once and replay')
+    if traced_graphs != {'replayed': n_steps}:
+        failed.append('the traced chunk did not only replay')
+    if counted:
+        failed.append('a wrapper counted a replayed launch')
+    if by_name != want:
+        failed.append('K1-K4 in the trace differ from steady_step_sites')
+    if not out['traced_stats_finite']:
+        failed.append('traced stats not finite')
+    if failed:
+        raise AssertionError(f'{failed}: {json.dumps(out)}')
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase tools: the A/B harness, the profilers, the converter, the native
 # loader (neuron_gan_tpu_torch/tools, runtime/native.py)
 # ---------------------------------------------------------------------------
@@ -2699,10 +2881,11 @@ def _quiet(fn, *a):
     return out, buf.getvalue()
 
 
-def ab_arm_launches(args, n_images, precision_name, kw):
+def ab_arm_launches(args, n_images, precision_name, kw, replays=()):
     """(kernel launches, batch steps) of one arm of ``precision_ab.run_arm``
     (its keyword arguments ``kw``) under ``args``: every step of the
-    schedule at its phase, batch 8, then the final samples' G forward."""
+    schedule at its phase, batch 8, less the ``replays`` of CUDA graphs
+    (``graph_replays``), then the final samples' G forward."""
     from neuron_gan_tpu_torch.tools import precision_ab as pab
     cfg = pab.arm_config(precision_name, kw['compute_dtype'], kw['packed_lanes'])
     sched = pab.arm_schedule(args)
@@ -2711,7 +2894,7 @@ def ab_arm_launches(args, n_images, precision_name, kw):
         phases += [sched.phase_at(start)] * (end - start + 1) * -(-n_images // 8)
     passes = step_passes(gp_reuse_fakes=kw['gp_reuse_fakes'])
     return _add_counts(
-        expected_launches(cfg, phases, passes=passes),
+        expected_launches(cfg, launched_phases(phases, replays), passes=passes),
         expected_launches(cfg, [cfg.n_phases - 1], passes=SAMPLE_PASSES)), len(phases)
 
 
@@ -2732,11 +2915,14 @@ def check_ab(torch, seed, work):
     def counted(precision_name, dataset, args_, out_dir, device, tag=None,
                 **kw):
         reset_counters()
-        out = real_run_arm(precision_name, dataset, args_, out_dir, device,
-                           tag=tag, **kw)
+        with graph_replays() as replays:
+            out = real_run_arm(precision_name, dataset, args_, out_dir, device,
+                               tag=tag, **kw)
         torch.cuda.synchronize()
-        want, steps = ab_arm_launches(args, len(dataset), precision_name, kw)
-        arms[tag] = {'launches': read_counters(), 'want': want, 'steps': steps}
+        want, steps = ab_arm_launches(args, len(dataset), precision_name, kw,
+                                      replays)
+        arms[tag] = {'launches': read_counters(), 'want': want, 'steps': steps,
+                     'graph_replays': dict(replays)}
         return out
 
     with mock.patch.object(pab, 'run_arm', counted):
@@ -3172,6 +3358,9 @@ def smoke(torch, seed, smi, t_start, work):
     emit(check_legacy(torch, seed))
     stretch = check_stretch(torch, seed, work)
     emit(stretch)
+    # (it opens a profiler session: after every steps/s window)
+    for name in ('shipping', 'packed'):
+        emit(check_step_graphs(torch, seed, name))
 
     epi = check_epilogue_kernels(
         torch, lpn, seed, more_bf16=[(tuple(e['x']), e['case'])

@@ -29,6 +29,8 @@ Where this differs from bench.py, on purpose:
   window's steps/s) are added.  bench.py times one scanned window, which
   is steady under jit; the eager loop's single windows spread by up to a
   third between runs.  Each window ends on the host copy of its stats.
+  ``step_graphs`` says how the runner ran the steps: eagerly (and why) or
+  as CUDA graphs captured and replayed (``train_step.step_graphs``).
 - ``n_images`` is rounded up to a multiple of the batch, so every batch of
   an epoch has one geometry (bench.py keeps 16, and with ``--batch 12``
   trains a batch of 12 and one of 4 while counting one step).
@@ -62,6 +64,7 @@ The process opens no torch.profiler session.
 """
 
 import argparse
+import collections
 import dataclasses
 import json
 import math
@@ -86,7 +89,7 @@ from neuron_gan_tpu_torch.parallel import Grid, mesh_ranks, shard_state, spawn
 from neuron_gan_tpu_torch.runtime import resolve_device
 from neuron_gan_tpu_torch.train_step import (
     draw_batch, epoch_scalars, init_train_state, make_batch_step,
-    make_epoch_runner)
+    make_epoch_runner, step_graphs)
 from neuron_gan_tpu_torch.utils.latents import sample_latent_vec
 
 # The reference's step (``--measure-torch``: 512^2, batch 8) on the card
@@ -202,11 +205,14 @@ def bench_train(cfg, spec, device=None, windows=5, roofline=None):
     bench.py's ``bench_tpu``): a dict of the median ``value``, ``min``,
     ``max`` and ``windows``, the ``steps`` run (warm-up included), the
     final train ``state`` and, with ``roofline`` (a dict the roofline keys
-    go into), the ``step_bytes`` counted."""
+    go into), the ``step_bytes`` counted, and ``step_graphs``: how the
+    runner ran its steps (``train_step.step_graphs``)."""
     device = resolve_device(device)
+    before = collections.Counter(step_graphs)
     rates, steps, state = train_windows(cfg, spec, device, windows,
                                         N_EPOCHS_CHUNK, FRAME)
-    out = dict(_summary(rates), steps=steps, state=state, step_bytes=None)
+    out = dict(_summary(rates), steps=steps, state=state, step_bytes=None,
+               step_graphs=dict(step_graphs - before))
     if roofline is not None:
         name = device_name(device)
         peak = HBM_PEAK_GBPS.get(name)
@@ -281,8 +287,11 @@ def bench_all_phases(fast_augment=True, device=None, windows=5):
 
 
 def _spread(r):
-    return {'min': round(r['min'], 3), 'max': round(r['max'], 3),
-            'windows': r['windows']}
+    out = {'min': round(r['min'], 3), 'max': round(r['max'], 3),
+           'windows': r['windows']}
+    if 'step_graphs' in r:
+        out['step_graphs'] = r['step_graphs']
+    return out
 
 
 # --------------------------------------------------------------------------

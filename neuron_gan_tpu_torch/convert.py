@@ -163,15 +163,18 @@ def _load_opt_state(opt, params, tree, leaf):
     optimizer state; ``leaf(tree, i)`` is parameter i's tensor in a
     moment tree."""
     for i, p in enumerate(params):
+        # a capturable optimizer keeps its count on the parameter's device
+        dev = p.device if opt.param_groups[0]['capturable'] else None
         if isinstance(opt, torch.optim.RMSprop):
             # torch's RMSprop counts steps but no update reads the count
-            opt.state[p] = {'step': torch.zeros((), dtype=_scalar_dtype()),
+            opt.state[p] = {'step': torch.zeros((), dtype=_scalar_dtype(),
+                                                device=dev),
                             'square_avg': leaf(tree['nu'], i).to(p)}
         else:
             count, mu, nu = tree
             opt.state[p] = {
                 'step': torch.tensor(float(np.asarray(count)),
-                                     dtype=_scalar_dtype()),
+                                     dtype=_scalar_dtype(), device=dev),
                 'exp_avg': leaf(mu, i).to(p),
                 'exp_avg_sq': leaf(nu, i).to(p)}
 

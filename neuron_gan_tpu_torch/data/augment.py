@@ -32,6 +32,7 @@ the images and those draws, so tests can inject the JAX package's draws.
 
 import collections
 import dataclasses
+import functools
 import math
 
 import torch
@@ -149,6 +150,13 @@ def _gather(img, iy, ix):
     return torch.where(valid[:, None], out, torch.zeros_like(out))
 
 
+@functools.lru_cache(maxsize=None)
+def _half_pi(device):
+    # cached per device: a host-to-device copy in every step would make
+    # the host wait, and a CUDA graph cannot capture it
+    return torch.tensor(math.pi / 2.0, device=device)
+
+
 def shear_source(p, window, angle_deg, tx, ty, flip):
     """The shear warp's source pixel for every window pixel of frames of
     side ``p``: (iy, ix, shifts), ``iy``/``ix`` (B, S, S) int64 in the
@@ -168,7 +176,7 @@ def shear_source(p, window, angle_deg, tx, ty, flip):
     rad = angle_deg * (math.pi / 180.0)
     # a true division, as JAX's (CUDA multiplies by the reciprocal of a
     # Python-number divisor)
-    quarter = torch.round(rad / torch.tensor(math.pi / 2.0, device=dev))
+    quarter = torch.round(rad / _half_pi(dev))
     m = torch.remainder(quarter.to(torch.int64), 4)[:, None, None]
     res = rad - quarter * (math.pi / 2.0)
     a = torch.tan(res / 2.0)[:, None, None]

@@ -105,7 +105,8 @@ def warm_runner(cfg, chunk_spec, images, phase=None):
                              DiscriminatorPG(cfg, init, device=device))
     spec = chunk_spec(phase)
     rng = torch.Generator(device=device).manual_seed(SEED)
-    one_epoch = make_epoch_runner(cfg, spec, 1)
+    # eager: the profiles read the eager step's stages
+    one_epoch = make_epoch_runner(cfg, spec, 1, capture=False)
     one_epoch(state, images, rng, 1)                # warm-up epoch
     if device.type == 'cuda':
         torch.cuda.synchronize()

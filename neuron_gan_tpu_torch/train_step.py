@@ -20,8 +20,14 @@ streams that never agree.
 Optimizers are torch.optim's Adam(beta1, 0.999, eps=1e-8) and
 RMSprop(alpha=0.99, eps=1e-8), the semantics the JAX package replicates;
 the per-epoch lr is written into their param groups before each step.
+
+On CUDA the epoch runner replays its steady batch step as a CUDA graph
+(``StepGraphs``): one launch a step in place of the eager step's
+thousands, the draws still made eagerly and copied into the graph's
+static inputs.  ``step_graphs`` counts how each step ran.
 """
 
+import collections
 import copy
 import dataclasses
 from typing import Optional
@@ -43,6 +49,14 @@ from neuron_gan_tpu_torch.utils.latents import sample_latent_vec
 STAT_NAMES = ('score_real', 'score_fake', 'D_loss', 'G_loss', 'D_grad_pen',
               'G_sim_loss')
 
+# the epoch runner's batch steps by how they ran: 'captured' (CUDA graphs
+# recorded), 'replayed', 'eager:<reason>' (``eager_reason``, or 'warmup':
+# the eager steps of a graph key before its capture)
+step_graphs = collections.Counter()
+# eager steps a graph key runs before its capture: they make the
+# optimizers' state, the libraries' handles and the constant caches
+WARMUP_STEPS = 3
+
 
 # --------------------------------------------------------------------------
 # State and optimizers
@@ -50,10 +64,29 @@ STAT_NAMES = ('score_real', 'score_fake', 'D_loss', 'G_loss', 'D_grad_pen',
 
 def make_optimizer(params, beta1=0.5, rmsprop=False):
     """torch.optim optimizer with the reference's settings; its lr is set
-    per step."""
+    per step (``_set_lr``)."""
     if rmsprop:
         return torch.optim.RMSprop(params, lr=0.0, alpha=0.99, eps=1e-8)
     return torch.optim.Adam(params, lr=0.0, betas=(beta1, 0.999), eps=1e-8)
+
+
+def _capturable(opt, on):
+    """Make ``opt`` capturable, or not, where it is not so already.  A
+    capturable optimizer keeps its lr in a 0-d tensor and its step counts
+    on the parameters' device, so a CUDA graph can replay its step; the
+    epoch runner turns it on where it replays its steps and off where it
+    runs them eagerly (a capturable step launches more kernels)."""
+    for group in opt.param_groups:
+        if group['capturable'] == on:
+            continue
+        group['capturable'] = on
+        dev = group['params'][0].device
+        group['lr'] = (torch.tensor(float(group['lr']), device=dev) if on
+                       else float(group['lr']))
+        for p in group['params']:
+            st = opt.state.get(p, {})
+            if 'step' in st:
+                st['step'] = st['step'].to(p.device if on else 'cpu')
 
 
 @dataclasses.dataclass
@@ -66,6 +99,11 @@ class TrainState:
     # under a grid's model axis (parallel.shard_state): what this rank
     # keeps; g_opt and d_opt then step its tensors, and g_ema is in it
     shards: Optional[ShardedState] = None
+    # the epoch runner's CUDA graphs of this state's steps (a state that
+    # dataclasses.replace makes starts without any)
+    graphs: 'StepGraphs' = dataclasses.field(
+        default_factory=lambda: StepGraphs(), init=False, repr=False,
+        compare=False)
 
 
 def init_train_state(g, d, beta1=0.5, rmsprop=False, ema_beta=0.0):
@@ -220,24 +258,43 @@ def draw_batch(rng: torch.Generator, cfg: PGConfig, spec: ChunkSpec,
             'zg': sample_latent_vec(rng, size)}
 
 
-def _to(draws, device, moved=None):
-    """``draws`` on ``device``; a tensor that appears twice (z2 is z1 under
-    gp_reuse_fakes) stays one tensor."""
-    moved = {} if moved is None else moved
-    if isinstance(draws, torch.Tensor):
-        if id(draws) not in moved:
-            moved[id(draws)] = draws.to(device)
-        return moved[id(draws)]
-    if isinstance(draws, dict):
-        return {k: _to(v, device, moved) for k, v in draws.items()}
-    if isinstance(draws, (list, tuple)):
-        return type(draws)(_to(v, device, moved) for v in draws)
-    return draws
+def _map_tensors(tree, fn, memo=None):
+    """``tree`` (dicts, lists and tuples) with each tensor t as fn(t); a
+    tensor that appears twice (z2 is z1 under gp_reuse_fakes) maps to one
+    result, kept in ``memo`` by the tensor's id."""
+    memo = {} if memo is None else memo
+    if isinstance(tree, torch.Tensor):
+        if id(tree) not in memo:
+            memo[id(tree)] = fn(tree)
+        return memo[id(tree)]
+    if isinstance(tree, dict):
+        return {k: _map_tensors(v, fn, memo) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tensors(v, fn, memo) for v in tree)
+    return tree
+
+
+def _to(draws, device):
+    """``draws`` on ``device``; a tensor that appears twice stays one."""
+    return _map_tensors(draws, lambda t: t.to(device))
+
+
+def _tensors(tree):
+    """The distinct tensors of ``tree``, in the order first met."""
+    memo = {}
+    _map_tensors(tree, lambda t: t, memo)
+    return list(memo.values())
 
 
 def _set_lr(opt, lr):
+    """``lr`` into ``opt``'s param groups: into the 0-d tensor a capturable
+    optimizer holds there (outside any CUDA graph, which reads it), else as
+    the Python float."""
     for group in opt.param_groups:
-        group['lr'] = lr
+        if isinstance(group['lr'], torch.Tensor):
+            group['lr'].fill_(lr)
+        else:
+            group['lr'] = lr
 
 
 def _grads_into(loss, params):
@@ -255,7 +312,9 @@ def make_batch_step(cfg: PGConfig, spec: ChunkSpec, grid=None):
     one full G+D update on one raw batch (B, P, P, C) in [0, 1].  Returns
     the stats (STAT_NAMES) weighted by the batch size, on the device.  After
     it, the parameters' ``.grad`` hold the last critic step's and the
-    generator step's gradients, taken before their optimizer steps.
+    generator step's gradients, taken before their optimizer steps.  An
+    ``lr`` of None leaves the optimizers' lr as it is set (``StepGraphs``
+    writes it outside the graph); ``sim_lam`` may be a 0-d tensor.
 
     With ``grid`` (parallel.Grid), ``raw_batch`` and ``draws`` are this
     rank's rows ``grid.rows(batch)`` of a global batch of ``batch`` rows
@@ -270,12 +329,15 @@ def make_batch_step(cfg: PGConfig, spec: ChunkSpec, grid=None):
 
     def step(state: TrainState, raw_batch, draws, alpha, lr, sim_lam,
              batch=None):
+        if lr is not None:
+            _set_lr(state.d_opt, lr)
+            _set_lr(state.g_opt, lr)
         with precision_scope(cfg.precision):
             return _step(state, raw_batch, _to(draws, raw_batch.device),
-                         alpha, lr, sim_lam,
+                         alpha, sim_lam,
                          raw_batch.shape[0] if batch is None else batch)
 
-    def _step(state, raw_batch, draws, alpha, lr, sim_lam, batch):
+    def _step(state, raw_batch, draws, alpha, sim_lam, batch):
         b = raw_batch.shape[0]
         a = alpha if spec.fading else None
 
@@ -290,8 +352,6 @@ def make_batch_step(cfg: PGConfig, spec: ChunkSpec, grid=None):
                       if b else None)
         d_params = list(state.d.parameters())
         g_params = list(state.g.parameters())
-        _set_lr(state.d_opt, lr)
-        _set_lr(state.g_opt, lr)
         zero = torch.zeros((), device=raw_batch.device)
 
         def d_total_loss(z1, z2, eps):
@@ -383,6 +443,166 @@ def make_batch_step(cfg: PGConfig, spec: ChunkSpec, grid=None):
 
 
 # --------------------------------------------------------------------------
+# CUDA graphs of the batch step
+# --------------------------------------------------------------------------
+
+def eager_reason(device, grid, shards, fading):
+    """Why the epoch runner runs its steps eagerly, or None where it
+    replays them as CUDA graphs: on CUDA, with no grid, no model axis and
+    in a steady chunk (a fading chunk's alpha changes every epoch and
+    reaches ``fade_in`` as a Python float)."""
+    if torch.device(device).type != 'cuda':
+        return 'cpu'
+    if grid is not None:
+        return 'grid'
+    if shards is not None:
+        return 'shards'
+    if fading:
+        return 'fading'
+    return None
+
+
+def graph_key(cfg: PGConfig, spec: ChunkSpec, raw):
+    """What a captured step bakes in besides the state's tensors: the
+    phase first, the batch's rows, the stack's frame and dtype, the
+    augmentation, n_critic and the loss constants; not the lr, the epoch
+    or the similarity weight, which it reads from the device."""
+    return (spec.phase, raw.shape, raw.dtype, cfg, _augment_spec(cfg, spec),
+            spec.n_critic, spec.gp_lambda, spec.drift_epsilon,
+            spec.sim_lambda0 > 0, spec.ema_beta, spec.gp_reuse_fakes,
+            spec.gp_remat, spec.latent_dim)
+
+
+def _params(state):
+    return [*state.g.parameters(), *state.d.parameters()]
+
+
+def _state_tensors(state):
+    """The tensors a captured step reads or updates in place: the nets'
+    parameters and buffers, the EMA's, the optimizers' state and lr."""
+    out = _params(state) + [*state.g.buffers(), *state.d.buffers()]
+    if state.g_ema is not None:
+        out += [*state.g_ema.parameters(), *state.g_ema.buffers()]
+    for opt in (state.g_opt, state.d_opt):
+        for group in opt.param_groups:
+            out.append(group['lr'])
+            for p in group['params']:
+                out += [v for v in opt.state.get(p, {}).values()
+                        if isinstance(v, torch.Tensor)]
+    return out
+
+
+def _same(a, b):
+    return len(a) == len(b) and all(x is y for x, y in zip(a, b))
+
+
+class GraphStep:
+    """One batch step over static inputs: ``load`` copies a batch's raw
+    rows, its draws and the similarity weight into them, and the step
+    reads only them; the optimizers' lr is set by the caller.  Eagerly
+    (``eager``) it is the batch step itself; on CUDA ``capture`` records
+    it into a CUDA graph that ``replay`` runs again."""
+
+    def __init__(self, step, raw, draws, sim):
+        self.step = step
+        self.raw = raw.clone()
+        self.draws = _map_tensors(draws, torch.clone)
+        self.inputs = [self.raw] + _tensors(self.draws)
+        self.lam = torch.zeros((), device=raw.device) if sim else None
+        self.graph = self.out = self.grads = None
+        self.warm = 0
+
+    def load(self, raw, draws, lam):
+        for dst, src in zip(self.inputs, [raw] + _tensors(draws)):
+            dst.copy_(src)
+        if self.lam is not None:
+            self.lam.fill_(lam)
+
+    def _call(self, state):
+        lam = 0.0 if self.lam is None else self.lam
+        return self.step(state, self.raw, self.draws, 1.0, None, lam,
+                         self.raw.shape[0])
+
+    def eager(self, state):
+        """The step run eagerly, on CUDA on a side stream (as
+        torch.cuda.graphs asks of the steps before a capture)."""
+        if not self.raw.is_cuda:
+            return self._call(state)
+        side = torch.cuda.Stream(self.raw.device)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            out = self._call(state)
+        torch.cuda.current_stream().wait_stream(side)
+        return out
+
+    def capture(self, state):
+        """Record the step into a CUDA graph (which runs nothing: replay
+        it).  The kernels' wrappers count the capture's launches, once; a
+        replay launches them again without passing through Python."""
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.out = self._call(state)
+        self.grads = [p.grad for p in _params(state)]
+
+    def replay(self):
+        self.graph.replay()
+        return self.out
+
+
+class StepGraphs:
+    """A train state's captured batch steps (``TrainState.graphs``), a
+    ``GraphStep`` a ``graph_key``, and the state's tensors they were
+    captured on."""
+
+    def __init__(self):
+        self.steps = {}
+        self.tensors = None
+        # the step replayed last: the parameters' .grad are its gradients
+        self.last = None
+
+    def check(self, state, phase):
+        """Drop every graph when the state's tensors, or the gradients of
+        the step replayed last, are no longer those the graphs hold (a
+        checkpoint restore replaces the optimizers' state; an eager step
+        the gradients), and the graphs of other phases."""
+        if self.tensors is not None and (
+                not _same(self.tensors, _state_tensors(state))
+                or (self.last is not None and not _same(
+                    self.last.grads, [p.grad for p in _params(state)]))):
+            self.steps.clear()
+            self.tensors = self.last = None
+        for key in [k for k in self.steps if k[0] != phase]:
+            del self.steps[key]
+
+    def run(self, key, step, state, raw, draws, lr, lam):
+        """One batch step of the graph ``key``: eager for its first
+        WARMUP_STEPS, then captured and replayed.  ``lam`` is the
+        similarity weight, None where the step has no similarity loss."""
+        g = self.steps.get(key)
+        if g is None:
+            g = self.steps[key] = GraphStep(step, raw, draws, lam is not None)
+        g.load(raw, draws, lam)
+        _set_lr(state.d_opt, lr)
+        _set_lr(state.g_opt, lr)
+        if g.graph is None and g.warm < WARMUP_STEPS:
+            g.warm += 1
+            step_graphs['eager:warmup'] += 1
+            self.last = None
+            return g.eager(state)
+        if g.graph is None:
+            g.capture(state)
+            self.tensors = _state_tensors(state)
+            step_graphs['captured'] += 1
+        out = g.replay()
+        step_graphs['replayed'] += 1
+        if self.last is not g:
+            for p, grad in zip(_params(state), g.grads):
+                p.grad = grad
+            self.last = g
+        return out
+
+
+# --------------------------------------------------------------------------
 # Epoch runner
 # --------------------------------------------------------------------------
 
@@ -405,7 +625,7 @@ def batch_draws(rng, cfg, spec, batch, frame, grid=None):
 
 
 def make_epoch_runner(cfg: PGConfig, spec: ChunkSpec, n_epochs: int,
-                      grid=None):
+                      grid=None, capture=True):
     """Build ``run(state, images_stack, rng, first_epoch)`` -> per-epoch
     stats (n_epochs, 6), each epoch's batch-weighted sums over n_images.
 
@@ -413,12 +633,30 @@ def make_epoch_runner(cfg: PGConfig, spec: ChunkSpec, n_epochs: int,
     epoch draws a permutation (when ``spec.shuffle``), then the batch
     draws, from ``rng``.  The last batch may be partial.  With ``grid``
     each rank trains on its rows of every batch and the stats are summed
-    over the data group."""
+    over the data group.
+
+    Where ``eager_reason`` finds none, the steps run through the state's
+    CUDA graphs (``StepGraphs``) and its optimizers are capturable, else
+    the steps run eagerly and, on CUDA, the optimizers are not capturable
+    (``_capturable``); ``step_graphs`` counts both.  ``capture=False`` runs
+    every step eagerly, leaves the optimizers as they are and counts
+    nothing: the step-profiling tools, which read the eager step's stage
+    spans, build their runner so."""
     step = make_batch_step(cfg, spec, grid)
 
     def run(state: TrainState, images_stack, rng: torch.Generator,
             first_epoch: int):
         frame = images_stack.shape[1]
+        reason = graphs = None
+        if capture:
+            reason = eager_reason(images_stack.device, grid, state.shards,
+                                  spec.fading)
+            if reason != 'cpu':
+                _capturable(state.d_opt, reason is None)
+                _capturable(state.g_opt, reason is None)
+            if reason is None:
+                graphs = state.graphs
+                graphs.check(state, spec.phase)
         totals = []
         for epoch in range(first_epoch, first_epoch + n_epochs):
             alpha, lr, lam = epoch_scalars(spec, epoch)
@@ -436,7 +674,15 @@ def make_epoch_runner(cfg: PGConfig, spec: ChunkSpec, n_epochs: int,
                        else images_stack[rows])
                 with span('step.draws'):
                     draws = batch_draws(rng, cfg, spec, b, frame, grid)
-                total = total + step(state, raw, draws, alpha, lr, lam, b)
+                if graphs is not None:
+                    out = graphs.run(graph_key(cfg, spec, raw), step, state,
+                                     raw, draws, lr,
+                                     lam if spec.sim_lambda0 > 0 else None)
+                else:
+                    if reason is not None:
+                        step_graphs['eager:' + reason] += 1
+                    out = step(state, raw, draws, alpha, lr, lam, b)
+                total = total + out
             totals.append(total)
         return epoch_stats(totals, spec, grid)
 
