@@ -35,51 +35,17 @@ def _seeds(text):
     return [int(s) for s in text.split(',') if s]
 
 
-def _augment_probe():
-    """Records the program's first augmentation call: (raw batch, draws,
-    output)."""
-    from neuron_gan_tpu_torch import train_step as ts
-    seen, inner = [], ts.augment_batch
-
-    def probe(images, draws, spec):
-        out = inner(images, draws, spec)
-        if not seen:
-            seen.append((images.clone(), draws, out.clone()))
-        return out
-    return seen, inner, probe
-
-
-def _augment_gap(cfg, traffic, seen):
-    """Pixels where the reference's augmentation of the program's first
-    batch and draws differs from the program's, and the largest gap."""
-    raw, draws, out = seen[0]
-    t, ex = cfg['training'], cfg['execution']
-    res = harness.ref_model.resolution(cfg['model'], traffic['phase'])
-    with harness.ref_precision():
-        ref = harness.ref_augment.augment(
-            raw, draws, res, t['crop_size'], augment=t['augment'],
-            fast=ex['fast_augment'], shear=harness.ref_augment.shear_for(ex, res))
-    gap = (out.float() - ref).abs()
-    return {'pixels': int((gap > 0).sum()), 'max': float(gap.max())}
-
-
 def train_reading(cell, cfg, seed, device, patch=None, control=None):
-    traffic = cell['traffic']
+    traffic, arch = cell['traffic'], cfg['arch']
     augment = None
     if control is None:
-        from neuron_gan_tpu_torch import train_step as ts
-        seen, inner, probe = _augment_probe()
-        ts.augment_batch = probe
-        try:
+        with arch.augment_look(cfg, traffic) as augment:
             s = harness.train_setup(cfg, traffic, seed, device, patch)
-        finally:
-            ts.augment_batch = inner
-        augment = _augment_gap(cfg, traffic, seen)
         record, g_w, d_w, stack = s['record'], s['g_w'], s['d_w'], s['stack']
         del s
         harness._free(device)
     else:
-        g_w, d_w, stack = harness.train_inputs(cfg, traffic, seed, device)
+        g_w, d_w, stack = arch.train_inputs(cfg, traffic, seed, device)
         record = harness.reference_run(cfg, traffic, seed, g_w, d_w, stack,
                                        device, precision=control)
     ref = harness.reference_run(cfg, traffic, seed, g_w, d_w, stack, device)
@@ -93,16 +59,15 @@ def sample_reading(cell, cfg, seed, device, patch=None, control=None):
         out = harness.run_sample(cell, cfg, seed, 1.0, False, device,
                                  time.perf_counter(), patch)
         return out['numbers'], None
-    traffic = cell['traffic']
+    traffic, arch = cell['traffic'], cfg['arch']
     gen = torch.Generator(device=device).manual_seed(seed)
-    g_w, _ = harness.ref_model.make_weights(cfg['model'], gen)
+    g_w, _ = arch.make_weights(cfg, gen)
     pool = harness.latent_pool(cfg, traffic, gen)
     keep = []
     with torch.no_grad(), harness.ref_precision(control == 'tf32'):
         for i in range(traffic['check_batches']):
-            images = harness.ref_model.generator(
-                g_w, pool[i], traffic['phase'], cfg['model'],
-                precision=control)
+            images = arch.generator(g_w, pool[i], traffic['phase'], cfg,
+                                    precision=control)
             keep.append((i, images.permute(0, 2, 3, 1).cpu().numpy()))
     return harness.sample_numbers(keep, pool, g_w, cfg, traffic['phase']), None
 

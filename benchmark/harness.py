@@ -5,9 +5,14 @@ part, and the comparison with the plain reference that decides
 Everything that belongs to one configuration, one cell or one per-layer
 metric is data found by name under the benchmark's directory:
 
-  configs/<config>.json      the model, the training hyperparameters, the
-                             port's execution knobs, the peak its MFU
-                             divides by, ``source``, ``reduced``, ``assumed``;
+  configs/<config>.json      the architecture's name, the model, the
+                             training hyperparameters, the port's execution
+                             knobs, the peak its MFU divides by, ``source``,
+                             ``reduced``, ``assumed``;
+  architectures/<arch>.py    everything that depends on the model: its
+                             inputs, draws, plain reference, the port's
+                             objects that run it, its FLOPs and kernel
+                             sites (architectures/__init__.py);
   workloads/<cell>.json      the configuration's name, the traffic (a
                              'train' or a 'sample' mix and its
                              parameters), the ``why`` and the limits of the
@@ -17,8 +22,8 @@ metric is data found by name under the benchmark's directory:
   ../BENCHMARK.json          which metrics each cell reports.
 
 The program under test is ``neuron_gan_tpu_torch``; this module imports it
-only inside the functions that drive it.  The reference
-(``benchmark.reference``) imports nothing of it.
+only inside the functions that drive it.  The references (each
+architecture's) import nothing of it.
 """
 
 import dataclasses
@@ -33,12 +38,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from benchmark import flops, kernels
+from benchmark import architectures
 from benchmark import trace as tracing
-from benchmark.reference import augment as ref_augment
-from benchmark.reference import draws as ref_draws
-from benchmark.reference import model as ref_model
-from benchmark.reference import train as ref_train
 
 REPO = Path(__file__).resolve().parents[1]
 FORBIDDEN = ('jax', 'jaxlib', 'flax', 'neuron_gan_tpu')
@@ -59,6 +60,7 @@ class Bench:
     def __init__(self, repo=REPO):
         self.repo = Path(repo)
         self.dir = self.repo / 'benchmark'
+        self._archs = {}
 
     def spec(self):
         return json.loads((self.repo / 'BENCHMARK.json').read_text())
@@ -70,12 +72,25 @@ class Bench:
         return json.loads(path.read_text())
 
     def cell(self, name):
-        """(cell, its configuration) by the cell's name."""
+        """(cell, its configuration) by the cell's name; the configuration's
+        ``arch`` is its architecture's module."""
         cell = self._json('workloads', name)
         cell['name'] = name
         cfg = self._json('configs', cell['config'])
         cfg['name'] = cell['config']
+        if 'architecture' not in cfg:
+            raise KeyError(f"configuration {cell['config']!r} names no "
+                           f"architecture "
+                           f"({self.dir / 'configs' / cell['config']}.json)")
+        cfg['arch'] = self.architecture(cfg['architecture'])
         return cell, cfg
+
+    def architecture(self, name):
+        """The module architectures/<name>.py, loaded once."""
+        if name not in self._archs:
+            self._archs[name] = architectures.get(
+                name, self.dir / 'architectures')
+        return self._archs[name]
 
     def reader(self, metric):
         path = self.dir / 'metrics' / f'{metric}.py'
@@ -102,92 +117,13 @@ def forbidden_modules(modules=None):
 
 
 # --------------------------------------------------------------------------
-# The program's objects
-# --------------------------------------------------------------------------
-
-def port_config(cfg):
-    from neuron_gan_tpu_torch.models import PGConfig
-    m, ex = cfg['model'], cfg['execution']
-    return PGConfig(
-        n_gen_features=tuple(m['n_gen_features']),
-        n_dis_features=tuple(m['n_dis_features']),
-        latent_dim=m['latent_dim'], image_size_init=m['image_size_init'],
-        n_colors=m['n_colors'], neg_slope=m['neg_slope'],
-        compute_dtype=ex['compute_dtype'], precision=ex['precision'],
-        use_kernels=ex['use_kernels'], packed_min_res=ex['packed_min_res'],
-        packed_lanes=ex['packed_lanes'])
-
-
-def port_chunk_spec(cfg, traffic):
-    from neuron_gan_tpu_torch.train_step import ChunkSpec
-    t, ex = cfg['training'], cfg['execution']
-    return ChunkSpec(
-        phase=traffic['phase'], fading=traffic['fading'],
-        n_critic=t['n_critic'], batch_size=t['batch_size'],
-        n_images=traffic['n_images'], shuffle=True,
-        crop_size=t['crop_size'], translation=t['translation'],
-        augment=t['augment'], gp_lambda=t['gp_lambda'],
-        drift_epsilon=t['drift_epsilon'], sim_lambda0=0.0, sim_decay=0.0,
-        beta1=t['beta1'], rmsprop=False, lr0=t['lr0'],
-        lr_gamma=t['lr_gamma'], lr_boundary=0, lr_cap=t['lr_cap'],
-        alpha_start=traffic.get('alpha_start', 0),
-        alpha_step=traffic.get('alpha_step', 1e-4),
-        latent_dim=cfg['model']['latent_dim'],
-        fast_augment=ex['fast_augment'], shear_warp=ex['shear_warp'],
-        gp_reuse_fakes=ex['gp_reuse_fakes'])
-
-
-def port_nets(cfg, g_w, d_w, device):
-    """The port's G (and D when ``d_w``) holding the benchmark's weights."""
-    from neuron_gan_tpu_torch.models import DiscriminatorPG, GeneratorPG
-    pg = port_config(cfg)
-    host = torch.Generator().manual_seed(0)
-    g = GeneratorPG(pg, host, device=device)
-    g.load_state_dict(g_w)
-    if d_w is None:
-        return pg, g, None
-    d = DiscriminatorPG(pg, host, device=device)
-    d.load_state_dict(d_w)
-    return pg, g, d
-
-
-# --------------------------------------------------------------------------
 # Inputs from the seed
 # --------------------------------------------------------------------------
 
 def train_seed(seed):
-    """The seed of the training steps' draws (weights and stack take
-    ``seed`` itself)."""
+    """The seed of the training steps' draws, the program's generator's and
+    the reference's alike (weights and stack take ``seed`` itself)."""
     return (seed + 1) % 2 ** 64
-
-
-def max_shift(cfg, traffic):
-    t, ex = cfg['training'], cfg['execution']
-    res = ref_model.resolution(cfg['model'], traffic['phase'])
-    return t['translation'] * ref_augment.warp_frame(
-        res, t['crop_size'], traffic['frame'], ex['fast_augment'],
-        ref_augment.shear_for(ex, res))
-
-
-def train_inputs(cfg, traffic, seed, device):
-    """(G weights, D weights, stack) from ``seed``, made on ``device`` in
-    three calls."""
-    gen = torch.Generator(device=device).manual_seed(seed)
-    g_w, d_w = ref_model.make_weights(cfg['model'], gen)
-    p = traffic['frame']
-    stack = torch.rand((traffic['n_images'], p, p, cfg['model']['n_colors']),
-                       generator=gen, device=device)
-    return g_w, d_w, stack
-
-
-def reference_steps(cfg, traffic, seed, device, n):
-    t = cfg['training']
-    gen = torch.Generator(device=device).manual_seed(train_seed(seed))
-    return ref_draws.steps(
-        gen, n, traffic['n_images'], t['batch_size'],
-        latent_dim=cfg['model']['latent_dim'], n_critic=t['n_critic'],
-        reuse_fakes=cfg['execution']['gp_reuse_fakes'],
-        max_shift=max_shift(cfg, traffic), augment=t['augment'])
 
 
 # --------------------------------------------------------------------------
@@ -341,10 +277,11 @@ def reference_run(cfg, traffic, seed, g_w, d_w, stack, device,
                   precision='float32'):
     """The reference's first steps from the benchmark's weights, stack and
     draws: the same record as the program's StepProbe."""
+    arch = cfg['arch']
     n_batches = -(-traffic['n_images'] // cfg['training']['batch_size'])
     n = max(REF_STEPS, n_batches)
-    steps = reference_steps(cfg, traffic, seed, device, n)
-    tr = ref_train.Trainer(g_w, d_w, cfg, traffic, precision)
+    steps = arch.reference_steps(cfg, traffic, train_seed(seed), device, n)
+    tr = arch.Trainer(g_w, d_w, cfg, traffic, precision)
     init = {'g': {k: v.clone() for k, v in tr.g.items()},
             'd': {k: v.clone() for k, v in tr.d.items()}}
     total, after = 0.0, []
@@ -365,7 +302,7 @@ def reference_run(cfg, traffic, seed, g_w, d_w, stack, device,
         # the first step in the configuration's own precision: how far
         # that precision alone lies from float32 on this seed's weights
         # and draws
-        st = ref_train.Trainer(g_w, d_w, cfg, traffic, stated)
+        st = arch.Trainer(g_w, d_w, cfg, traffic, stated)
         rows, d = steps[0]
         with ref_precision():
             st.step(stack[rows], d, 1)
@@ -448,6 +385,8 @@ class Reading:
     peaks: dict                # the card's peaks (peaks.json), or None
     sites: dict                # kernel launch sites of one step
     itemsize: int              # the kernels' working type's bytes
+    # the architecture's own kernels beside K1-K4 (its KERNELS)
+    kernels: dict = dataclasses.field(default_factory=dict)
 
 
 def _peaks(device):
@@ -455,6 +394,10 @@ def _peaks(device):
     if torch.device(device).type != 'cuda':
         return None
     return table.get(torch.cuda.get_device_name(device))
+
+
+def _itemsize(cfg):
+    return 4 if cfg['execution']['compute_dtype'] == 'float32' else 2
 
 
 def _sync(device):
@@ -469,21 +412,20 @@ def train_setup(cfg, traffic, seed, device, patch=None, marks=None):
     construction to plant a fault.  Returns a dict of it all; ``marks``
     gets the clock at the end of each part of the set-up."""
     marks = {} if marks is None else marks
-    from neuron_gan_tpu_torch.train_step import (
-        init_train_state, make_epoch_runner)
-    g_w, d_w, stack = train_inputs(cfg, traffic, seed, device)
+    from neuron_gan_tpu_torch.train_step import make_epoch_runner
+    arch = cfg['arch']
+    g_w, d_w, stack = arch.train_inputs(cfg, traffic, seed, device)
     _sync(device)
     marks['inputs'] = time.perf_counter()
-    pg, g, d = port_nets(cfg, g_w, d_w, device)
+    pg, g, d = arch.port_nets(cfg, g_w, d_w, device)
     _sync(device)
     marks['nets'] = time.perf_counter()
-    spec = port_chunk_spec(cfg, traffic)
-    state = init_train_state(g, d, beta1=spec.beta1)
+    spec, state, beta1 = arch.port_train(cfg, traffic, g, d)
     marks['optimizers'] = time.perf_counter()
     rng = torch.Generator(device=device).manual_seed(train_seed(seed))
     make = make_epoch_runner if patch is None else patch(make_epoch_runner)
     run = make(pg, spec, traffic['epochs_per_chunk'])
-    probe = StepProbe(state, spec.beta1)
+    probe = StepProbe(state, beta1)
     _sync(device)
     marks['runner'] = time.perf_counter()
     stats = run(state, stack, rng, 1).cpu()
@@ -531,20 +473,15 @@ def run_train(cell, cfg, seed, seconds, trace, device, t0, patch=None):
            'chunk_cpu_s': [b - a for a, b in zip([cpu_start] + cpus, cpus)]}
     out['forbidden'] = forbidden_modules()
     if trace:
+        arch = cfg['arch']
         _, tr = tracing.capture(
-            lambda: run(state, stack, rng, epoch).cpu())
-        t = traffic
+            lambda: run(state, stack, rng, epoch).cpu(), arch.KERNELS)
         out['reading'] = Reading(
             'train', tr, per_chunk, rate,
-            flops.train_step(cfg['model'], t['phase'],
-                             cfg['training']['batch_size'],
-                             cfg['execution']['gp_reuse_fakes'], t['fading']),
+            arch.train_step_flops(cfg, traffic),
             cfg['mfu_peak']['flops_per_s'], _peaks(device),
-            kernels.sites(cfg['model'], cfg['execution'], t['phase'],
-                          cfg['training']['batch_size'],
-                          kernels.step_passes(
-                              cfg['execution']['gp_reuse_fakes'])),
-            4 if cfg['execution']['compute_dtype'] == 'float32' else 2)
+            arch.kernel_sites(cfg, traffic), _itemsize(cfg),
+            arch.KERNELS)
     record, g_w, d_w = s['record'], s['g_w'], s['d_w']
     del s, run, state, rng
     _free(device)
@@ -559,7 +496,7 @@ def run_train(cell, cfg, seed, seconds, trace, device, t0, patch=None):
 
 def latent_pool(cfg, traffic, gen):
     b = traffic['batch']
-    z = ref_draws.latent(gen, LATENT_POOL * b, cfg['model']['latent_dim'])
+    z = cfg['arch'].latent(gen, LATENT_POOL * b, cfg)
     return z.view(LATENT_POOL, b, -1)
 
 
@@ -568,13 +505,13 @@ def run_sample(cell, cfg, seed, seconds, trace, device, t0, patch=None):
     G at the cell's phase, each copied to the host as the eval CLI does
     before writing its grid."""
     from neuron_gan_tpu_torch.models import precision_scope
-    traffic = cell['traffic']
+    traffic, arch = cell['traffic'], cfg['arch']
     gen = torch.Generator(device=device).manual_seed(seed)
-    g_w, _ = ref_model.make_weights(cfg['model'], gen)
+    g_w, _ = arch.make_weights(cfg, gen)
     pool = latent_pool(cfg, traffic, gen)
     _sync(device)
     marks = {'inputs': time.perf_counter()}
-    pg, g, _ = port_nets(cfg, g_w, None, device)
+    pg, g, _ = arch.port_nets(cfg, g_w, None, device)
     if patch is not None:
         g = patch(g)
     phase = traffic['phase']
@@ -619,12 +556,12 @@ def run_sample(cell, cfg, seed, seconds, trace, device, t0, patch=None):
     if trace:
         n = traffic['traced_batches']
         _, tr = tracing.capture(
-            lambda: [call(pool[i % LATENT_POOL]) for i in range(n)])
+            lambda: [call(pool[i % LATENT_POOL]) for i in range(n)],
+            arch.KERNELS)
         out['reading'] = Reading(
-            'sample', tr, n * b, rate,
-            flops.g_forward(cfg['model'], phase, 1),
+            'sample', tr, n * b, rate, arch.g_forward_flops(cfg, phase, 1),
             cfg['mfu_peak']['flops_per_s'], _peaks(device), {},
-            4 if cfg['execution']['compute_dtype'] == 'float32' else 2)
+            _itemsize(cfg), arch.KERNELS)
     del g
     _free(device)
     out['numbers'] = sample_numbers(keep, pool, g_w, cfg, phase)
@@ -636,8 +573,8 @@ def sample_numbers(keep, pool, g_w, cfg, phase):
     worst = 0.0
     with torch.no_grad(), ref_precision():
         for i, images in keep:
-            ref = ref_model.generator(g_w, pool[i % LATENT_POOL], phase,
-                                      cfg['model'])
+            ref = cfg['arch'].generator(g_w, pool[i % LATENT_POOL], phase,
+                                        cfg)
             ref = ref.permute(0, 2, 3, 1).cpu().numpy()
             gap = float(np.abs(images - ref).max())
             worst = max(worst, gap if math.isfinite(gap) else math.inf)

@@ -141,7 +141,13 @@ def least_s(kernel, shape, case, itemsize, peaks):
     return max(nbytes / hbm, 12 * numel / peaks['float32_flops_per_s'])
 
 
-def least_s_per_step(step_sites, kernels, itemsize, peaks):
-    """Summed least time of one step's launches of ``kernels``."""
-    return sum(n * least_s(k, shape, case, itemsize, peaks)
+def least_s_per_step(step_sites, kernels, itemsize, peaks, own=None):
+    """Summed least time of one step's launches of ``kernels``; a kernel
+    other than K1-K4 takes its least time from ``own`` {name: (substrings,
+    least_s(shape, case, itemsize, peaks))}, an architecture's KERNELS."""
+    def least(k, shape, case):
+        if k in KERNEL_NAMES:
+            return least_s(k, shape, case, itemsize, peaks)
+        return own[k][1](shape, case, itemsize, peaks)
+    return sum(n * least(k, shape, case)
                for (k, shape, case), n in step_sites.items() if k in kernels)

@@ -8,9 +8,9 @@ card and print its result as the last line of standard output.
 per-layer metrics (BENCHMARK.json), read from a torch.profiler trace of a
 part after the measured window.  Inputs and weights come from ``--seed``.
 Every run compares what its timed path produced with the plain reference
-in benchmark/reference/ and prints each number compared beside its limit,
-as the last lines of standard error and under the result's last key,
-``checks``.  Exits non-zero with no result when there is no CUDA card, too
+of its configuration's architecture (benchmark/architectures/<name>.py)
+and prints each number compared beside its limit, as the last lines of
+standard error and under the result's last key, ``checks``.  Exits non-zero with no result when there is no CUDA card, too
 few of them, or when JAX or the JAX package is loaded once the window has
 closed.  Kernel and compiler caches stay under build/ in the checkout.
 """

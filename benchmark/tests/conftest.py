@@ -1,7 +1,7 @@
 """Fixtures of the benchmark's CPU tests: a copy of the benchmark at a
-tiny size (every cell of BENCHMARK.json, its configuration cut to three
-levels of 4^2-16^2 and a few channels, its traffic to two epochs a chunk
-on 24^2 frames) that the harness runs on the CPU in a second."""
+tiny size (every cell of BENCHMARK.json, its configuration cut as its
+architecture's ``TINY`` says, its traffic to two epochs a chunk on 24^2
+frames) that the harness runs on the CPU in a second."""
 
 import json
 import shutil
@@ -14,25 +14,29 @@ REPO = Path(__file__).resolve().parents[2]
 if str(REPO) not in sys.path:
     sys.path.insert(0, str(REPO))
 
-TINY_MODEL = {'n_gen_features': [16, 8, 8], 'n_dis_features': [8, 8, 16],
-              'latent_dim': 8, 'image_size_init': 4, 'n_colors': 1,
-              'neg_slope': 0.2}
+def cut(cfg, tiny):
+    """``cfg`` with each key of its architecture's ``tiny`` {section: {key:
+    value}} set, except where the configuration has it null."""
+    for section, keys in tiny.items():
+        for k, v in keys.items():
+            if cfg[section].get(k, v) is not None:
+                cfg[section][k] = v
+    return cfg
 
 
 def make_tiny(root, limits=True):
     """A tiny copy of the benchmark under ``root``; ``limits`` keeps the
     cells' limits (else they are 1.0)."""
+    from benchmark import architectures
     root = Path(root)
     shutil.copytree(REPO / 'benchmark', root / 'benchmark',
                     ignore=shutil.ignore_patterns('__pycache__', 'tests'))
     shutil.copy(REPO / 'BENCHMARK.json', root / 'BENCHMARK.json')
     for path in (root / 'benchmark' / 'configs').glob('*.json'):
         cfg = json.loads(path.read_text())
-        cfg['model'] = dict(TINY_MODEL)
-        cfg['training']['crop_size'] = 16
-        if cfg['execution']['packed_min_res']:
-            cfg['execution']['packed_min_res'] = 8
-        path.write_text(json.dumps(cfg))
+        arch = architectures.get(cfg['architecture'],
+                                 root / 'benchmark' / 'architectures')
+        path.write_text(json.dumps(cut(cfg, arch.TINY)))
     for path in (root / 'benchmark' / 'workloads').glob('*.json'):
         cell = json.loads(path.read_text())
         t = cell['traffic']

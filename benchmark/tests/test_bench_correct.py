@@ -85,11 +85,28 @@ def _python(code):
                           capture_output=True, text=True, timeout=300)
 
 
-def test_reference_imports_nothing_of_the_program():
+def test_reference_imports_nothing_of_the_program(tmp_path):
+    """Every cell's architecture module, its inputs, draws, reference
+    (a training cell's first steps, a sampling cell's images) and counts,
+    run at the tiny size, load nothing of the program or of JAX."""
+    from benchmark.tests.conftest import make_tiny
+    make_tiny(tmp_path)
     out = _python(
-        'import sys\n'
-        'import benchmark.reference.model, benchmark.reference.augment\n'
-        'import benchmark.reference.draws, benchmark.reference.train\n'
+        'import sys, torch\n'
+        'from benchmark.harness import Bench, reference_run\n'
+        f'b = Bench({str(tmp_path)!r})\n'
+        'for w in b.spec()["workloads"]:\n'
+        '    cell, cfg = b.cell(w["name"])\n'
+        '    t, a = cell["traffic"], cfg["arch"]\n'
+        '    if t["kind"] == "train":\n'
+        '        g, d, stack = a.train_inputs(cfg, t, 5, "cpu")\n'
+        '        reference_run(cfg, t, 5, g, d, stack, "cpu")\n'
+        '        a.train_step_flops(cfg, t), a.kernel_sites(cfg, t)\n'
+        '    else:\n'
+        '        gen = torch.Generator().manual_seed(5)\n'
+        '        g, _ = a.make_weights(cfg, gen)\n'
+        '        a.generator(g, a.latent(gen, 2, cfg), t["phase"], cfg)\n'
+        '        a.g_forward_flops(cfg, t["phase"], 1)\n'
         'print(sorted({m.split(".")[0] for m in sys.modules}'
         ' & {"neuron_gan_tpu_torch", "neuron_gan_tpu", "jax", "jaxlib", "flax"}))')
     assert out.returncode == 0, out.stderr

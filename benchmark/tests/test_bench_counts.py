@@ -1,7 +1,8 @@
 """The yardstick's arithmetic at a small size: the analytic model FLOPs
 against torch's FlopCounterMode over the reference, the frozen kernel
 launch sites against the port's own, and the kernels' least times against
-their shapes."""
+their shapes.  The counts of an architecture are reached through its
+module (architectures/<name>.py)."""
 
 import math
 
@@ -9,23 +10,20 @@ import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from benchmark import flops, kernels
+from benchmark import architectures, kernels, trace
 from benchmark.harness import Bench
-from benchmark.reference import draws as ref_draws
-from benchmark.reference import model as net
-from benchmark.reference import train as ref_train
-from benchmark.tests.conftest import TINY_MODEL
 
 PEAKS = {'hbm_bytes_per_s': 3.35e12, 'float32_flops_per_s': 67e12,
          'tf32_flops_per_s': 495e12, 'bfloat16_flops_per_s': 989e12}
+ARCH = architectures.get('neuron_pggan')
 
 
 def _cfg(reuse):
-    return {'model': TINY_MODEL,
+    return {'model': ARCH.TINY['model'],
             'training': dict(n_critic=1, gp_lambda=10.0, drift_epsilon=1e-3,
                              beta1=0.5, lr0=1e-4, lr_gamma=0.9998157,
                              lr_cap=12500, crop_size=16, augment=True,
-                             translation=0.05),
+                             translation=0.05, batch_size=4),
             'execution': dict(fast_augment=False, shear_warp=False,
                               gp_reuse_fakes=reuse)}
 
@@ -35,34 +33,34 @@ def _cfg(reuse):
 @pytest.mark.parametrize('reuse', (True, False))
 @pytest.mark.parametrize('fading', (False, True))
 def test_train_step_flops(reuse, fading):
-    gen = torch.Generator().manual_seed(3)
-    g, d = net.make_weights(TINY_MODEL, gen)
-    tr = ref_train.Trainer(g, d, _cfg(reuse),
-                           {'phase': 2, 'fading': fading, 'alpha_step': 0.25})
-    (rows, draws), = ref_draws.steps(gen, 1, 4, 4, latent_dim=8, n_critic=1,
-                                     reuse_fakes=reuse, max_shift=1.2)
-    stack = torch.rand(4, 24, 24, 1, generator=gen)
+    cfg = _cfg(reuse)
+    traffic = {'phase': 2, 'fading': fading, 'alpha_step': 0.25,
+               'n_images': 4, 'frame': 24}
+    g, d, stack = ARCH.train_inputs(cfg, traffic, 3, 'cpu')
+    tr = ARCH.Trainer(g, d, cfg, traffic)
+    (rows, draws), = ARCH.reference_steps(cfg, traffic, 4, 'cpu', 1)
     with FlopCounterMode(display=False) as count:
         tr.step(stack[rows], draws, 1)
-    assert count.get_total_flops() == flops.train_step(TINY_MODEL, 2, 4,
-                                                       reuse, fading)
+    assert count.get_total_flops() == ARCH.train_step_flops(cfg, traffic)
 
 
 @pytest.mark.parametrize('phase', (0, 1, 2))
 def test_generator_flops(phase):
+    cfg = _cfg(True)
     gen = torch.Generator().manual_seed(4)
-    g, _ = net.make_weights(TINY_MODEL, gen)
-    z = ref_draws.latent(gen, 5, 8)
+    g, _ = ARCH.make_weights(cfg, gen)
+    z = ARCH.latent(gen, 5, cfg)
     with FlopCounterMode(display=False) as count:
-        net.generator(g, z, phase, TINY_MODEL)
-    assert count.get_total_flops() == flops.g_forward(TINY_MODEL, phase, 5)
+        ARCH.generator(g, z, phase, cfg)
+    assert count.get_total_flops() == ARCH.g_forward_flops(cfg, phase, 5)
 
 
 def test_flagship_flops():
     """The 512^2 geometry: G 4.467 and D 1.518 GFLOP an image."""
-    m = Bench().cell('neuron512_ship.steady512')[1]['model']
-    assert flops.g_forward(m, 5, 1) == 4466933760
-    assert 2 * sum(x for _, x in flops.d_layers(m, 5)) == 1518403584
+    cfg = Bench().cell('neuron512_ship.steady512')[1]
+    assert ARCH.g_forward_flops(cfg, 5, 1) == 4466933760
+    assert 2 * sum(x for _, x in ARCH.flops.d_layers(cfg['model'], 5)) \
+        == 1518403584
 
 
 @pytest.mark.parametrize('config,phase', [('neuron512_ship', 5),
@@ -72,13 +70,11 @@ def test_sites_match_the_port(config, phase):
     """The frozen sites are the port's flagship.step_sites at the
     configuration, phase and batch."""
     from neuron_gan_tpu_torch import flagship
-    from benchmark.harness import port_config
     cfg = Bench()._json('configs', config)
     batch = cfg['training']['batch_size']
     reuse = cfg['execution']['gp_reuse_fakes']
-    ours = kernels.sites(cfg['model'], cfg['execution'], phase, batch,
-                         kernels.step_passes(reuse))
-    port = flagship.step_sites(port_config(cfg), phase, batch,
+    ours = ARCH.kernel_sites(cfg, {'phase': phase})
+    port = flagship.step_sites(ARCH.port_config(cfg), phase, batch,
                                flagship.step_passes(gp_reuse_fakes=reuse))
     assert ours == port and ours
 
@@ -101,3 +97,18 @@ def test_least_times():
     from neuron_gan_tpu_torch.ops import packed as pk
     w = pk.pack_conv3x3_weight(torch.randn(16, 16, 3, 3), 1.0)
     assert int((w != 0).sum()) == 2.25 * 64 * 64
+
+
+def test_an_architectures_own_kernels():
+    """A kernel an architecture names in its KERNELS gets its own category
+    in a trace and its least time from its own function."""
+    own = {'k5': (('fused_head',), lambda shape, case, itemsize, peaks:
+                  math.prod(shape) * itemsize / peaks['hbm_bytes_per_s'])}
+    assert trace.category('void fused_head_kernel<float>', own) == 'k5'
+    assert trace.category('void fused_head_kernel<float>') != 'k5'
+    assert trace.category('lrelu_pn_fwd_kernel', own) == 'k1'
+    sites = {('k5', (2, 8, 4, 4), None): 3, ('k1', (2, 8, 4, 4), 1): 2}
+    assert kernels.least_s_per_step(sites, ('k5',), 2, PEAKS, own) == \
+        3 * 256 * 2 / 3.35e12
+    assert kernels.least_s_per_step(sites, ('k1',), 2, PEAKS, own) == \
+        2 * kernels.least_s('k1', (2, 8, 4, 4), 1, 2, PEAKS)

@@ -11,7 +11,8 @@ keeps:
   first event of the trace to its last, so the idle share is that of the
   traced window (the profiler's own host cost is in it);
 * the kernels' device time by name and by category (``category``, a frozen
-  copy of the port's tools/op_trace.py name lists);
+  copy of the port's tools/op_trace.py name lists, and the kernels an
+  architecture names beside K1-K4, its ``KERNELS``);
 * the host's launch calls (kernel and graph launches of the CUDA runtime
   and driver);
 * the host's operators, so an idle gap on the device is charged to the
@@ -51,10 +52,13 @@ _ELEMENTWISE = ('elementwise', 'vectorized', 'unrolled', 'aten::add',
                 'aten::lt', 'aten::gt', 'aten::le', 'aten::eq', 'aten::round')
 
 
-def category(name):
-    """The category of a kernel name (tools/op_trace.py's rule)."""
+def category(name, own=None):
+    """The category of a kernel name (tools/op_trace.py's rule); ``own``
+    {name: (substrings, least_s)} (an architecture's KERNELS) comes after
+    K1-K4."""
     low = name.lower()
-    for cat, keys in _KERNELS:
+    kinds = _KERNELS + tuple((k, v[0]) for k, v in (own or {}).items())
+    for cat, keys in kinds:
         if any(k in low for k in keys):
             return cat
     for cat, keys in (('layout', _LAYOUT), ('conv', _CONV), ('gemm', _GEMM),
@@ -79,9 +83,11 @@ def _union(intervals):
 
 class Trace:
     """The reduced trace (times in seconds).  Build one from raw events,
-    each (activity, name, start_ns, end_ns, thread)."""
+    each (activity, name, start_ns, end_ns, thread), and the
+    architecture's own kernels (``category``)."""
 
-    def __init__(self, events):
+    def __init__(self, events, own=None):
+        self.own = own or {}
         device, host, starts, ends = [], collections.defaultdict(list), [], []
         self.kernel_s = collections.Counter()
         self.launch_calls = self.kernels = 0
@@ -119,7 +125,7 @@ class Trace:
     def category_s(self):
         out = collections.Counter()
         for name, t in self.kernel_s.items():
-            out[category(name)] += t
+            out[category(name, self.own)] += t
         return out
 
     def kernels_matching(self, keys):
@@ -176,12 +182,12 @@ def _raw(prof):
                e.start_thread_id())
 
 
-def capture(fn):
+def capture(fn, own=None):
     """(fn's result, Trace) of ``fn`` run under torch.profiler; ``fn``
-    ends by waiting for the device."""
+    ends by waiting for the device; ``own`` as ``category``'s."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=acts) as prof:
         out = fn()
-    return out, Trace(_raw(prof))
+    return out, Trace(_raw(prof), own)
