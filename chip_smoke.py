@@ -4,6 +4,7 @@ check it.
 
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --ranks N     # N >= 2 cards: the dp_nccl phase
+    python3 chip_smoke.py --wide        # the wide K1/K2 phase alone
 
 
 Four paths of the port are driven, all at the flagship geometry (16^2 ..
@@ -129,7 +130,12 @@ Phases, each printing one JSON line:
               of K1/K2 at every path shape and of each kernel and its plain
               version at the largest; of K3 (and its plain version and
               F.conv2d) and of K4 (and its plain version) at every
-              distinct packed shape, each beside its bound;
+              distinct packed shape, each beside its bound; the wide
+              K1/K2 instances (C_g 256 and 512, Karras et al.'s PGGAN at
+              batch 4) in both types against the plain versions, the
+              second order included, each timed beside its bound, the
+              plain version and the runtime-width instance at its shape
+              (``check_wide_epilogue``; alone with ``--wide``);
 5. boundaries each fused level boundary of the mixed and shipping paths
               (the 2x4 ones too) against its decomposed chain at those
               paths' shapes (float32, TF32 off), and both forms' bfloat16
@@ -300,6 +306,21 @@ def at_offset(torch, t, offset):
 # phase 4: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def epilogue_gp_grad(torch, epilogue, x, c, w0):
+    """GP-style second order through an epilogue: the gradient norm of a
+    toy critic (per-channel scale -> epilogue -> random linear readout)
+    w.r.t. its input, differentiated again w.r.t. the scales.  (One scalar
+    scale, or a squared readout, would be degenerate: PixelNorm is
+    scale-invariant and fixes each pixel's sum of squares.)"""
+    w = w0.clone().requires_grad_()
+    xr = x.clone().requires_grad_()
+    gx, = torch.autograd.grad((epilogue(xr * w) * c).sum(), xr,
+                              create_graph=True)
+    norms = torch.sqrt((gx ** 2).sum(dim=(1, 2, 3)))
+    gw, = torch.autograd.grad(((norms - 1.0) ** 2).sum(), w)
+    return gw
+
+
 def check_epilogue_kernels(torch, lpn, seed, more_bf16=()):
     """K1/K2 (the LReLU + PixelNorm pair) against their plain versions:
     float32 by tolerance, bfloat16 within 2 bfloat16 ulps of the output's
@@ -328,9 +349,12 @@ def check_epilogue_kernels(torch, lpn, seed, more_bf16=()):
         dx = lpn._bwd(x, g, n_groups, 0.2, 1e-8)
         torch.cuda.synchronize()
         # the instance the rule picks for this width launched
-        runtime = lpn.kernel_instance(shape[1] // n_groups, dtype)[0] is None
+        width = lpn.kernel_instance(shape[1] // n_groups, dtype)[0]
+        runtime = width is None
+        tag = ('/runtime' if runtime
+               else '/wide' if width in lpn.WIDE_WIDTHS else '')
         cases = lpn.launches_by_case - before
-        assert cases == {(f'k{i}{"/runtime" if runtime else ""}', str(dtype)
+        assert cases == {(f'k{i}{tag}', str(dtype)
                           .removeprefix('torch.'), tuple(shape), n_groups): 1
                          for i in (1, 2)}, cases
         ref = lpn.lrelu_pixel_norm_plain(x, n_groups)
@@ -416,27 +440,16 @@ def check_epilogue_kernels(torch, lpn, seed, more_bf16=()):
                 'slice': s, 'fwd_regs': lpn.kernel_regs(c_g, dtype),
                 'bwd_regs': lpn.kernel_regs(c_g, dtype, bwd=True)}
 
-    # GP-style second order through the autograd Functions: the gradient
-    # norm of a toy critic (per-channel scale -> epilogue -> random linear
-    # readout) w.r.t. its input, differentiated again w.r.t. the scales.
-    # (One scalar scale, or a squared readout, would be degenerate:
-    # PixelNorm is scale-invariant and fixes each pixel's sum of squares.)
-    def gp_grad(epilogue, x, c, w0):
-        w = w0.clone().requires_grad_()
-        xr = x.clone().requires_grad_()
-        gx, = torch.autograd.grad((epilogue(xr * w) * c).sum(), xr,
-                                  create_graph=True)
-        norms = torch.sqrt((gx ** 2).sum(dim=(1, 2, 3)))
-        gw, = torch.autograd.grad(((norms - 1.0) ** 2).sum(), w)
-        return gw
-
+    # GP-style second order through the autograd Functions
     for shape, n_groups in (((2, 16, 3, 3), 1), ((2, 16, 3, 3), 4),
                             ((8, 32, 64, 64), 1)):
         x, c = randn(shape), randn(shape)
         w0 = 0.5 + torch.rand((1, shape[1], 1, 1), generator=gen, device=dev)
-        got = gp_grad(lambda v: lpn.lrelu_pixel_norm(v, n_groups), x, c, w0)
-        want = gp_grad(lambda v: lpn.lrelu_pixel_norm_plain(v, n_groups),
-                       x, c, w0)
+        got = epilogue_gp_grad(
+            torch, lambda v: lpn.lrelu_pixel_norm(v, n_groups), x, c, w0)
+        want = epilogue_gp_grad(
+            torch, lambda v: lpn.lrelu_pixel_norm_plain(v, n_groups), x, c,
+            w0)
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
         checked.append({'gp_second_order': list(shape), 'n_groups': n_groups})
     # bfloat16: K2 computes the LeakyReLU in float32, the plain backward
@@ -445,9 +458,9 @@ def check_epilogue_kernels(torch, lpn, seed, more_bf16=()):
                             ((8, 128, 32, 32), 4)):
         x, c = randn(shape), randn(shape)
         w0 = 0.5 + torch.rand((1, shape[1], 1, 1), generator=gen, device=dev)
-        got = gp_grad(lambda v: lpn.lrelu_pixel_norm(
+        got = epilogue_gp_grad(torch, lambda v: lpn.lrelu_pixel_norm(
             v.bfloat16(), n_groups).float(), x, c, w0)
-        want = gp_grad(lambda v: lpn.lrelu_pixel_norm_plain(
+        want = epilogue_gp_grad(torch, lambda v: lpn.lrelu_pixel_norm_plain(
             v.bfloat16(), n_groups).float(), x, c, w0)
         dist = rel_l2([got], [want])
         assert dist <= BF16_TOL['gp_rel_l2'], (shape, n_groups, dist)
@@ -503,6 +516,100 @@ def check_epilogue_kernels(torch, lpn, seed, more_bf16=()):
             'timed_shape_bf16': list(shape_bf16), 'timed_n_groups_bf16': 4,
             **times, 'bound_ms': bounds, 'instances': instances,
             'by_shape': by_shape}
+
+
+# K1/K2 at Karras et al.'s widths: every (x shape) of the epilogues of the
+# PGGAN at CelebA-HQ 1024^2 whose group is 256 or 512 channels, at batch 4
+WIDE_SHAPES = ((4, 512, 4, 4), (4, 512, 8, 8), (4, 512, 16, 16),
+               (4, 512, 32, 32), (4, 256, 64, 64))
+
+
+def check_wide_epilogue(torch, lpn, seed):
+    """The wide K1/K2 instances (C_g 256, 512) at WIDE_SHAPES, in float32
+    and bfloat16: forward and backward against the plain versions (float32
+    at check_epilogue_kernels' tolerances, bfloat16 within 2 bfloat16 ulps),
+    the launch counted as 'k1/wide' / 'k2/wide', the second order through
+    the autograd Functions (a GP-style gradient of a gradient), and the
+    device time of each beside its byte bound, the plain version's and the
+    runtime-width instance's at the same shape (also checked)."""
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    f32_f, f32_b = dict(rtol=1e-5, atol=1e-6), dict(rtol=1e-4, atol=1e-5)
+
+    def randn(shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device='cuda').to(dtype)
+
+    def close(got, want, dtype, tol):
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, **tol)
+            return (got - want).abs().max().item()
+        return within_ulps(torch, got, want)
+
+    rows, instances = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).removeprefix('torch.')
+        for c_g in lpn.WIDE_WIDTHS:
+            width, s = lpn.kernel_instance(c_g, dtype)
+            assert width == c_g and lpn.kernel_slice(c_g, dtype) == s
+            instances[f'{dt}/{c_g}'] = {
+                'slice': s, 'fwd_regs': lpn.kernel_regs(c_g, dtype),
+                'bwd_regs': lpn.kernel_regs(c_g, dtype, bwd=True)}
+        for shape in WIDE_SHAPES:
+            x, g = randn(shape, dtype), randn(shape, dtype)
+            before = collections.Counter(lpn.launches_by_case)
+            out = lpn._fwd(x, 1, 0.2, 1e-8)
+            dx = lpn._bwd(x, g, 1, 0.2, 1e-8)
+            torch.cuda.synchronize()
+            cases = lpn.launches_by_case - before
+            assert cases == {(f'k{i}/wide', dt, shape, 1): 1
+                             for i in (1, 2)}, cases
+            ref = lpn.lrelu_pixel_norm_plain(x)
+            ref_dx = lpn.lrelu_pixel_norm_bwd_plain(x, g)
+            err = {'fwd': close(out, ref, dtype, f32_f),
+                   'bwd': close(dx, ref_dx, dtype, f32_b),
+                   'runtime_fwd': close(lpn.runtime_width(x), ref, dtype,
+                                        f32_f),
+                   'runtime_bwd': close(lpn.runtime_width(x, g), ref_dx,
+                                        dtype, f32_b)}
+            c = randn(shape)
+            w0 = 0.5 + torch.rand((1, shape[1], 1, 1), generator=gen,
+                                  device='cuda')
+            xf = randn(shape)
+            # float32: the kernel sums a group's 256 or 512 channels in
+            # another order than the plain version, which moves a few
+            # elements of the second order by 1e-3 of their size (an H100,
+            # PERF.md): held as one vector, by relative L2
+            if dtype == torch.float32:
+                got = epilogue_gp_grad(torch, lpn.lrelu_pixel_norm, xf, c,
+                                       w0)
+                want = epilogue_gp_grad(torch, lpn.lrelu_pixel_norm_plain,
+                                        xf, c, w0)
+                tol = 1e-4
+            else:
+                got = epilogue_gp_grad(torch, lambda v: lpn.lrelu_pixel_norm(
+                    v.bfloat16()).float(), xf, c, w0)
+                want = epilogue_gp_grad(
+                    torch, lambda v: lpn.lrelu_pixel_norm_plain(
+                        v.bfloat16()).float(), xf, c, w0)
+                tol = BF16_TOL['gp_rel_l2']
+            err['gp_rel_l2'] = rel_l2([got], [want])
+            assert err['gp_rel_l2'] <= tol, (shape, dt, err)
+            item = x.element_size()
+            rows.append({
+                'dtype': dt, 'x': list(shape), 'n_groups': 1,
+                'max_abs_err': err,
+                'fwd_ms': device_ms(lambda: lpn._fwd(x, 1, 0.2, 1e-8)),
+                'bwd_ms': device_ms(lambda: lpn._bwd(x, g, 1, 0.2, 1e-8)),
+                'fwd_runtime_ms': device_ms(lambda: lpn.runtime_width(x)),
+                'bwd_runtime_ms': device_ms(lambda: lpn.runtime_width(x, g)),
+                'fwd_plain_ms': device_ms(
+                    lambda: lpn.lrelu_pixel_norm_plain(x)),
+                'bwd_plain_ms': device_ms(
+                    lambda: lpn.lrelu_pixel_norm_bwd_plain(x, g)),
+                'fwd_bound_ms': epilogue_bound_ms('k1', shape, item),
+                'bwd_bound_ms': epilogue_bound_ms('k2', shape, item),
+                **instances[f'{dt}/{shape[1]}']})
+    return {'phase': 'wide_epilogue', 'instances': instances,
+            'by_shape': rows}
 
 
 # Tolerances of the packed conv pair against its plain version (cuDNN's
@@ -3287,6 +3394,8 @@ def main():
     ap.add_argument('--seed', type=int, default=0)
     ap.add_argument('--ranks', type=int, default=None,
                     help='run only the dp_nccl phase, over this many cards')
+    ap.add_argument('--wide', action='store_true',
+                    help='run only the wide K1/K2 phase (C_g 256 and 512)')
     args = ap.parse_args()
 
     import torch
@@ -3313,6 +3422,15 @@ def main():
                                     if 'registers' in ln or 'spill' in ln
                                     or 'entry function' in ln]}
                       for n, (s, log) in built.items()}})
+
+    if args.wide:
+        import neuron_gan_tpu_torch.ops.lrelu_pixel_norm as lpn
+        emit(check_wide_epilogue(torch, lpn, args.seed))
+        print(smi, flush=True)
+        emit({'ok': True, 'device': {'platform': 'gpu',
+                                     'kind': torch.cuda.get_device_name(0),
+                                     'count': torch.cuda.device_count()}})
+        return 0
 
     if args.ranks is not None:
         emit(check_dp_nccl(torch, args.seed, args.ranks))
@@ -3367,6 +3485,7 @@ def smoke(torch, seed, smi, t_start, work):
                                      for e in stretch['launches_per_step']
                                      if e['kernel'] == 'k1'])
     emit({'phase': 'kernels', 'pair': 'lrelu_pixel_norm', **epi})
+    emit(check_wide_epilogue(torch, lpn, seed))
     conv = check_packed_kernels(torch, pcl, seed)
     emit({'phase': 'kernels', 'pair': 'packed_conv_lrelu_pn', **conv})
     conv16 = check_packed_kernels_bf16(torch, pcl, seed)

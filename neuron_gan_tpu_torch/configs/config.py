@@ -126,6 +126,14 @@ hbm_budget_mb = 4096         # Device-memory budget for the raw image stack.
                              # of batches in flight (streaming.py).  0
                              # keeps every stack on the device
 ema_beta = 0.0               # EMA decay for a shadow generator (0 disables)
+architecture = 'neuron'      # 'neuron': the neuron-gan PGGAN; 'karras': Karras
+                             # et al.'s G_paper/D_paper (nearest upsampling,
+                             # minibatch stddev, no PixelNorm in D; needs
+                             # packed_min_res = None; configs/config_karras.py)
+beta2 = 0.999                # Adam beta2 (Karras et al.: 0.99)
+mirror_augment = False       # Augment by the horizontal flip alone (Karras
+                             # et al.'s mirror_augment) in place of the warp
+                             # and jitter
 donate_state = True          # Accepted for parity; no effect: the port
                              # updates the models and optimizers in place
 profile_dir = ''             # If set, capture a torch.profiler trace of one
@@ -247,6 +255,10 @@ def validate_configs(interactive=True):
         f'shear_warp must be True, False or "auto"; got {shear_warp!r}.'
     assert packed_lanes in (None, 64, 128), \
         f'packed_lanes must be None, 64 or 128; got {packed_lanes!r}.'
+    assert architecture in ('neuron', 'karras'), \
+        f"architecture must be 'neuron' or 'karras'; got {architecture!r}."
+    assert architecture != 'karras' or packed_min_res is None, \
+        "architecture 'karras' takes no packed layout: set packed_min_res = None."
     global swd_period
     if swd_period is None:  # auto: quality curve at checkpoint cadence
         swd_period = checkpointing_period

@@ -22,7 +22,7 @@
 // Design (that of the packed dz kernel in packed_conv_lrelu_pn.cu, for a
 // kernel that forms r itself):
 // - Fixed widths: C_g is a template argument for every power of two from 1
-//   to 128 (the training paths take 16 to 128), so the channel loops
+//   to 512 (the training paths take 16 to 512), so the channel loops
 //   unroll.
 // - Work item: a thread takes one 16-byte vector of V consecutive pixels
 //   (V = 4 in float32, 8 in bfloat16) of S channels of one group and loads
@@ -51,11 +51,20 @@
 //   is not 16-byte aligned (a 2-D input has H*W = 1; a view may start at a
 //   storage offset), each thread takes the same V pixels with scalar loads
 //   and stores, masked at H*W.
-// - Any other group width (24, or 256 in a wider configuration) goes to the
-//   runtime-width instance (template argument 0): one thread a (pixel
-//   vector, group) walks the group's channels twice, once for the sums and
-//   once for the output, which reads x (and g) again, mostly from L2.  No
-//   training path launches it.
+// - The wide instances, C_g 256 and 512 (Karras et al.'s PGGAN, 512 and
+//   256 channels from 4^2 to 64^2): S = C_g / 32, so a vector's 32 lanes
+//   are one warp (S 8 and 16 in both types).  They are kernels of their
+//   own name (lrelu_pn_wide_fwd_kernel, lrelu_pn_wide_bwd_kernel), so a
+//   device trace tells them from the narrow instances.  At those shapes
+//   the runtime-width instance gives one thread a whole group: at 512 x
+//   4^2 and batch 4 in bfloat16, 8 threads walk 512 channels twice
+//   (PERF.md, kernel table: its time beside theirs).
+// - Any other group width (24, 96) goes to the runtime-width instance
+//   (template argument 0): one thread a (pixel vector, group) walks the
+//   group's channels twice, once for the sums and once for the output,
+//   which reads x (and g) again, mostly from L2.  No training path
+//   launches it; ``lrelu_pixel_norm_runtime`` launches it at any width,
+//   for the comparison above.
 //
 // Entry points have a plain C interface (loaded with ctypes); each launch
 // returns the cudaError_t of its launch, 0 on success.  They launch on the
@@ -83,7 +92,10 @@ struct Shape {
   static constexpr int V = 16 / (int)sizeof(T);
   // S as measured (see the note above)
   static constexpr int kSlice = sizeof(T) == 4 || CG >= 64 ? 4 : 8;
-  static constexpr int S = CG == 0 ? 0 : CG < kSlice ? CG : kSlice;
+  // the wide instances: the 32 lanes of a warp, S = C_g / 32
+  static constexpr bool kWide = CG >= 256;
+  static constexpr int kSliceOf = kWide ? CG / 32 : kSlice;
+  static constexpr int S = CG == 0 ? 0 : CG < kSliceOf ? CG : kSliceOf;
   static constexpr int L = CG == 0 ? 1 : CG / S;
   static_assert(L <= 32, "a vector's lanes must lie in one warp");
 };
@@ -351,6 +363,40 @@ lrelu_pn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
     one_pass<T, CG, true>(x, g, dx, hw, n_vec, n_items, aligned, slope, eps);
 }
 
+// the wide instances' kernels: the same thread work, another name
+template <typename T, int CG>
+__global__ void __launch_bounds__(kThreads)
+lrelu_pn_wide_fwd_kernel(const T* __restrict__ x, T* __restrict__ out, int hw,
+                         int n_vec, int n_items, int cg, bool aligned,
+                         float slope, float eps) {
+  one_pass<T, CG, false>(x, nullptr, out, hw, n_vec, n_items, aligned, slope,
+                         eps);
+}
+
+template <typename T, int CG>
+__global__ void __launch_bounds__(kThreads)
+lrelu_pn_wide_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                         T* __restrict__ dx, int hw, int n_vec, int n_items,
+                         int cg, bool aligned, float slope, float eps) {
+  one_pass<T, CG, true>(x, g, dx, hw, n_vec, n_items, aligned, slope, eps);
+}
+
+// the forward (kBwd false) or backward kernel of the instance <T, CG>
+template <typename T, int CG, bool kBwd>
+constexpr auto kernel_of() {
+  if constexpr (kBwd) {
+    if constexpr (Shape<T, CG>::kWide)
+      return lrelu_pn_wide_bwd_kernel<T, CG>;
+    else
+      return lrelu_pn_bwd_kernel<T, CG>;
+  } else {
+    if constexpr (Shape<T, CG>::kWide)
+      return lrelu_pn_wide_fwd_kernel<T, CG>;
+    else
+      return lrelu_pn_fwd_kernel<T, CG>;
+  }
+}
+
 bool bad_shape(int64_t batch, int64_t channels, int64_t hw,
                int64_t n_groups) {
   return batch < 0 || channels <= 0 || hw < 0 || n_groups <= 0 ||
@@ -379,11 +425,11 @@ cudaError_t launch(const void* x, const void* g, void* out, int64_t batch,
       (unsigned)((n_items * Sh::L + kThreads - 1) / kThreads);
   const int cg = (int)(channels / n_groups);
   if (g == nullptr)
-    lrelu_pn_fwd_kernel<T, CG><<<blocks, kThreads, 0, stream>>>(
+    kernel_of<T, CG, false>()<<<blocks, kThreads, 0, stream>>>(
         (const T*)x, (T*)out, (int)hw, (int)n_vec, (int)n_items, cg, aligned,
         slope, eps);
   else
-    lrelu_pn_bwd_kernel<T, CG><<<blocks, kThreads, 0, stream>>>(
+    kernel_of<T, CG, true>()<<<blocks, kThreads, 0, stream>>>(
         (const T*)x, (const T*)g, (T*)out, (int)hw, (int)n_vec, (int)n_items,
         cg, aligned, slope, eps);
   return cudaGetLastError();
@@ -398,10 +444,12 @@ using Width = std::integral_constant<int, N>;
 
 // f(Type<T>{}, Width<CG>{}) for the instance that takes groups of ``cg``
 // channels of the dtype code: a template instance for a power of two up to
-// 128, else the runtime-width one (CG = 0); ``bad`` for another dtype.
+// 512, else the runtime-width one (CG = 0; every width where ``runtime``);
+// ``bad`` for another dtype.
 template <class F>
-int dispatch(int64_t cg, int dtype, int bad, F f) {
+int dispatch(int64_t cg, int dtype, int bad, F f, bool runtime = false) {
   auto widths = [&](auto type) {
+    if (runtime) return f(type, Width<0>{});
     switch (cg) {
       case 1: return f(type, Width<1>{});
       case 2: return f(type, Width<2>{});
@@ -411,6 +459,8 @@ int dispatch(int64_t cg, int dtype, int bad, F f) {
       case 32: return f(type, Width<32>{});
       case 64: return f(type, Width<64>{});
       case 128: return f(type, Width<128>{});
+      case 256: return f(type, Width<256>{});
+      case 512: return f(type, Width<512>{});
       default: return f(type, Width<0>{});
     }
   };
@@ -421,16 +471,18 @@ int dispatch(int64_t cg, int dtype, int bad, F f) {
 
 int launch_any(const void* x, const void* g, void* out, int64_t batch,
                int64_t channels, int64_t hw, int64_t n_groups, float slope,
-               float eps, int dtype, void* stream) {
+               float eps, int dtype, void* stream, bool runtime = false) {
   if (bad_shape(batch, channels, hw, n_groups))
     return (int)cudaErrorInvalidValue;
-  return dispatch(channels / n_groups, dtype, (int)cudaErrorInvalidValue,
-                  [&](auto type, auto width) {
-                    using T = typename decltype(type)::type;
-                    return (int)launch<T, decltype(width)::value>(
-                        x, g, out, batch, channels, hw, n_groups, slope, eps,
-                        (cudaStream_t)stream);
-                  });
+  return dispatch(
+      channels / n_groups, dtype, (int)cudaErrorInvalidValue,
+      [&](auto type, auto width) {
+        using T = typename decltype(type)::type;
+        return (int)launch<T, decltype(width)::value>(
+            x, g, out, batch, channels, hw, n_groups, slope, eps,
+            (cudaStream_t)stream);
+      },
+      runtime);
 }
 
 }  // namespace
@@ -455,6 +507,18 @@ extern "C" int lrelu_pixel_norm_bwd(const void* x, const void* g, void* dx,
                     dtype, stream);
 }
 
+// K1 (g null) or K2 of the runtime-width instance at any group width, as
+// the two entry points above take their arguments: the comparison the
+// wide instances were chosen by.  No training path calls it.
+extern "C" int lrelu_pixel_norm_runtime(const void* x, const void* g,
+                                        void* out, int64_t batch,
+                                        int64_t channels, int64_t hw,
+                                        int64_t n_groups, float slope,
+                                        float eps, int dtype, void* stream) {
+  return launch_any(x, g, out, batch, channels, hw, n_groups, slope, eps,
+                    dtype, stream, true);
+}
+
 // Channels S a thread of the instance for group width cg and the dtype
 // code takes (0: the runtime-width instance), or -1 for a bad argument.
 extern "C" int lrelu_pixel_norm_slice(int64_t cg, int dtype) {
@@ -473,8 +537,8 @@ extern "C" int lrelu_pixel_norm_regs(int64_t cg, int dtype, int bwd) {
     constexpr int CG = decltype(width)::value;
     cudaFuncAttributes attr;
     const cudaError_t err =
-        bwd ? cudaFuncGetAttributes(&attr, lrelu_pn_bwd_kernel<T, CG>)
-            : cudaFuncGetAttributes(&attr, lrelu_pn_fwd_kernel<T, CG>);
+        bwd ? cudaFuncGetAttributes(&attr, kernel_of<T, CG, true>())
+            : cudaFuncGetAttributes(&attr, kernel_of<T, CG, false>());
     return err == cudaSuccess ? attr.numRegs : -1;
   });
 }

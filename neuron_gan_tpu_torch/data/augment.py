@@ -25,6 +25,11 @@ butterfly passes of static shifts (a point gather is the TPU's slowest
 op; on a GPU it is cheap).  An odd crop margin takes the windowed gather
 warp instead, as there; ``shear_fallbacks`` counts those batches.
 
+With ``mirror`` the augmentation is Karras et al.'s ``mirror_augment``
+alone: each image flipped horizontally with probability 1/2, then the
+centre crop, (0, 1) -> (-1, 1) and the resize; no warp, margin or
+jitter, and one draw an image (``flip``).
+
 Drawing is separate from computing: ``draw_augment`` takes the random
 parameters from a torch.Generator, and ``augment_batch`` is a function of
 the images and those draws, so tests can inject the JAX package's draws.
@@ -53,6 +58,7 @@ class AugmentSpec:
     degrees: float = 180.0
     fast: bool = False
     shear: bool = False
+    mirror: bool = False      # the horizontal flip alone (the module doc)
 
     def __post_init__(self):
         if self.shear and not self.fast:
@@ -91,6 +97,8 @@ def draw_augment(rng: torch.Generator, batch: int, frame: int,
         u = torch.rand(batch, generator=rng, device=rng.device)
         return lo + (hi - lo) * u
 
+    if spec.mirror:
+        return {'flip': uniform(0.0, 1.0) < 0.5}
     max_t = spec.translation * warp_frame(spec, frame)
     return {
         'angle': uniform(-spec.degrees, spec.degrees),
@@ -228,9 +236,23 @@ def _color_jitter(img, brightness, contrast, brightness_first):
                        contr(bright(img)), bright(contr(img)))
 
 
+def _mirror_batch(x, draws, spec: AugmentSpec):
+    """The mirror-only augmentation of (B, C, P, P) in [0, 1]."""
+    if spec.augment:
+        x = torch.where(draws['flip'].reshape(-1, 1, 1, 1), x.flip(3), x)
+    s = spec.crop_size
+    top = int(round((x.shape[-1] - s) / 2.0))
+    x = x[:, :, top:top + s, top:top + s] * 2.0 - 1.0
+    if spec.out_size < s:
+        x = resize_antialias(x, spec.out_size)
+    return x.contiguous()
+
+
 def augment_batch(images, draws, spec: AugmentSpec):
     """images (B, P, P, C) in [0, 1] -> (B, C, out, out) in [-1, 1]."""
     x = images.permute(0, 3, 1, 2)
+    if spec.mirror:
+        return _mirror_batch(x, draws, spec)
     if spec.fast and spec.out_size < spec.crop_size:
         # the fast path: resize first, then crop at phase scale
         x = resize_antialias(x, warp_frame(spec, x.shape[-1]))

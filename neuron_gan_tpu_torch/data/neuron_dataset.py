@@ -189,7 +189,8 @@ class NeuronDataset:
 
     def __init__(self, directory: str, image_size: int = 512,
                  augmentations: bool = True, im_translation: float = 0.0,
-                 seed: int = 0, preload_limit_mb: float = 100.0):
+                 seed: int = 0, preload_limit_mb: float = 100.0,
+                 n_colors: int = 1):
         if not os.path.exists(directory):
             raise ValueError('The dataset path {} does not exist.'.format(directory))
         self.dir = directory
@@ -198,6 +199,10 @@ class NeuronDataset:
         self.augmentations = augmentations
         self.im_translation = im_translation
         self.seed = seed
+        # colour planes of the stack: 1 collapses an image to its first
+        # plane; 3 keeps RGB (a grey image repeated), each plane padded and
+        # filled with the first plane's noise statistics
+        self.n_colors = n_colors
         # noise-statistics backend, decided once per dataset build
         self._stats_impl = 'native' if native.native_available() else 'numpy'
 
@@ -217,10 +222,10 @@ class NeuronDataset:
         self.images_noise_mean = np.empty(n)
         self.images_noise_std = np.empty(n)
 
-        est_bytes = n * frame * frame * 4
+        est_bytes = n * frame * frame * 4 * n_colors
         self.preloaded = est_bytes <= preload_limit_mb * 2 ** 20
         if self.preloaded:
-            self.images = np.empty((n, frame, frame, 1), np.float32)
+            self.images = np.empty((n, frame, frame, n_colors), np.float32)
             self._fill_stack(self.images, frame)
         else:
             try:
@@ -231,15 +236,19 @@ class NeuronDataset:
                 print(f'dataset cache unavailable ({exc}); '
                       'loading the full stack into RAM instead')
                 self.preloaded = True
-                self.images = np.empty((n, frame, frame, 1), np.float32)
+                self.images = np.empty((n, frame, frame, n_colors), np.float32)
                 self._fill_stack(self.images, frame)
 
     # ------------------------------------------------------------- processing
     def _process_one(self, index: int, frame: int) -> np.ndarray:
         """One image: decode, Otsu noise stats, pad, noise-fill, to [0,1]."""
         arr = decode_image(self.filenames[index])
-        if arr.ndim == 3:  # collapse to single channel like the 1-color config
-            arr = arr[..., 0]
+        # the first n_colors planes (1: collapse to single channel like the
+        # 1-color config), a grey image repeated; noise stats from the first
+        arr = arr if arr.ndim == 3 else arr[..., None]
+        planes = [arr[..., min(c, arr.shape[-1] - 1)]
+                  for c in range(self.n_colors)]
+        arr = planes[0]
         thresh = threshold_multiotsu(arr, classes=4)
         # two passes: the std over (v - mean)^2, never the moment identity
         if self._stats_impl == 'native' and arr.dtype == np.uint8:
@@ -254,7 +263,12 @@ class NeuronDataset:
             self.images_noise_std[index] = (noise_vals.std()
                                             if noise_vals.size else 0.0)
 
-        # reference border pad, then center in the common frame
+        return np.stack([self._pad_fill(p, frame, index, c)
+                         for c, p in enumerate(planes)], axis=-1)
+
+    def _pad_fill(self, arr, frame, index, plane):
+        """One plane: the reference border pad, centred in the common
+        frame, its zeros filled with the image's noise."""
         h, w = arr.shape
         top = (frame - h) // 2
         left = (frame - w) // 2
@@ -262,10 +276,10 @@ class NeuronDataset:
                         mode='constant', constant_values=0)
         # per-image RNG stream: identical output whether the stack is built
         # in RAM or streamed into the cache (and independent of order)
-        rng = np.random.default_rng([self.seed, index])
+        rng = np.random.default_rng([self.seed, index] + [plane] * (plane > 0))
         filled = replace_zero_with_noise(padded, self.images_noise_mean[index],
                                          self.images_noise_std[index], rng)
-        return _to_unit_float(filled)[..., None]
+        return _to_unit_float(filled)
 
     def _fill_stack(self, out, frame: int):
         for i in range(len(self.filenames)):
@@ -280,8 +294,11 @@ class NeuronDataset:
         # library gives numpy's (runtime/native.py), so it is 'numpy'
         # either way (the JAX package's native library, whose std differs
         # at ~1e-15, writes 'native')
-        return {'frame': frame, 'seed': self.seed, 'files': entries,
-                'stats': 'numpy'}
+        key = {'frame': frame, 'seed': self.seed, 'files': entries,
+               'stats': 'numpy'}
+        if self.n_colors != 1:
+            key['colors'] = self.n_colors
+        return key
 
     def _open_or_build_cache(self, frame: int):
         cache_dir = os.path.join(self.dir, '.neuron_gan_cache')
@@ -301,7 +318,7 @@ class NeuronDataset:
         # Build incrementally: one decoded image in RAM at a time.
         out = np.lib.format.open_memmap(
             stack_path, mode='w+', dtype=np.float32,
-            shape=(len(self.filenames), frame, frame, 1))
+            shape=(len(self.filenames), frame, frame, self.n_colors))
         self._fill_stack(out, frame)
         out.flush()
         del out

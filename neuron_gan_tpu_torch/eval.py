@@ -28,7 +28,7 @@ from neuron_gan_tpu_torch.convert import load_jax_tree
 from neuron_gan_tpu_torch.data.augment import AugmentSpec, augment_batch
 from neuron_gan_tpu_torch.data.neuron_dataset import NeuronDataset
 from neuron_gan_tpu_torch.metrics import swd_multiscale
-from neuron_gan_tpu_torch.models import GeneratorPG, GrowthState, PGConfig
+from neuron_gan_tpu_torch.models import GrowthState, PGConfig, build_generator
 from neuron_gan_tpu_torch.runtime import resolve_device
 from neuron_gan_tpu_torch.utils.plotting import gen_samples, plot_gen_samples
 
@@ -60,7 +60,10 @@ def build_parser():
 
 def fast_config(cfg):
     """``cfg`` as ``-fast`` runs it: precision=None (TF32 allowed, fused
-    level boundaries) in the packed layouts."""
+    level boundaries) in the packed layouts; Karras et al.'s architecture,
+    which takes no packed layout, only TF32."""
+    if cfg.architecture == 'karras':
+        return dataclasses.replace(cfg, precision=None)
     return dataclasses.replace(
         cfg, precision=None, packed_lanes=128,
         packed_min_res=max(64, 2 * cfg.image_size_init))
@@ -93,6 +96,7 @@ def load_generator(weights_filepath, device, fast=False, ema=False,
             # then-only defaults, so falling back is exact for them
             n_colors=int(meta.get('N_colors', 1)),
             neg_slope=float(meta.get('LeakyReLU_leak', 0.2)),
+            architecture=meta.get('architecture', 'neuron'),
         )
         growth = GrowthState(cfg)
         if int(meta['image_size']) > init or float(meta['alpha']) < 1.0:
@@ -101,7 +105,7 @@ def load_generator(weights_filepath, device, fast=False, ema=False,
     if fast:
         cfg = fast_config(cfg)
     growth = GrowthState(cfg, phase=growth.phase, alpha=growth.alpha)
-    g = GeneratorPG(cfg, torch.Generator().manual_seed(0), device=device)
+    g = build_generator(cfg, torch.Generator().manual_seed(0), device=device)
     return load_jax_tree(g, g_params), growth
 
 

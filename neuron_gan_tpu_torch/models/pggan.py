@@ -112,6 +112,9 @@ class PGConfig:
     # precision is None, as in the JAX package
     fuse_up2_conv: Optional[bool] = None
     fuse_pool_conv: Optional[bool] = None
+    # 'neuron': the neuron-gan variant of this module; 'karras': Karras et
+    # al.'s G_paper/D_paper (models/karras.py), which takes no packed layout
+    architecture: str = 'neuron'
 
     def __post_init__(self):
         object.__setattr__(self, 'n_gen_features', tuple(self.n_gen_features))
@@ -131,6 +134,14 @@ class PGConfig:
         if self.packed_lanes not in (None, 64, 128):
             raise ValueError(f'packed_lanes must be None, 64 or 128, got '
                              f'{self.packed_lanes}')
+        if self.architecture not in ('neuron', 'karras'):
+            raise ValueError(f"architecture must be 'neuron' or 'karras', "
+                             f'got {self.architecture!r}')
+        if self.architecture == 'karras' and self.packed_min_res is not None:
+            # the packed layouts build in bilinear upsampling and a critic
+            # that pools before its convs
+            raise ValueError("architecture 'karras' takes no packed layout: "
+                             'packed_min_res must be None')
 
     @property
     def dtype(self) -> torch.dtype:

@@ -16,4 +16,6 @@ from neuron_gan_tpu_torch.ops.resize import (  # noqa: F401
     resize_antialias,
     resize_nearest,
     upsample2_bilinear,
+    upsample2_nearest,
 )
+from neuron_gan_tpu_torch.ops.stddev import minibatch_stddev  # noqa: F401

@@ -13,10 +13,11 @@ Bound: bytes, not operations.  At the largest shape of the training path,
 H100's 3.35 TB/s) and the backward 403 MB (about 120 us); in bfloat16
 half of that.  The measured times are in PERF.md.
 
-Each group width C_g = C / n_groups that is a power of two up to 128 has
+Each group width C_g = C / n_groups that is a power of two up to 512 has
 its own instance of each kernel (a thread takes 16 bytes of pixels of S
-channels, the group's sums formed across lanes); any other width launches
-the runtime-width instance (``kernel_instance``).  ``lrelu_pixel_norm_sliced``
+channels, the group's sums formed across lanes); the wide ones, 256 and
+512, are kernels of their own name (``WIDE_WIDTHS``); any other width
+launches the runtime-width instance (``kernel_instance``).  ``lrelu_pixel_norm_sliced``
 and ``lrelu_pixel_norm_bwd_sliced`` repeat the kernels' order of summation
 on the CPU.
 
@@ -34,7 +35,8 @@ differs.  A CPU tensor takes the plain version; a CUDA tensor launches the
 kernel, or raises if the kernel cannot take it -- never a silent fall back.
 ``launches_by_case`` counts kernel launches, and nothing else, by ('k1'
 or 'k2', dtype name, x's shape, ``n_groups``), a launch of the
-runtime-width instance as 'k1/runtime' or 'k2/runtime';
+runtime-width instance as 'k1/runtime' or 'k2/runtime', of a wide one as
+'k1/wide' or 'k2/wide';
 ``launches_by_kernel`` sums it by kernel, dtype name and ``n_groups``.
 """
 
@@ -50,8 +52,11 @@ launches_by_case = collections.Counter()
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # group widths with a template instance of each kernel
-# (csrc/lrelu_pixel_norm.cu); any other width takes the runtime-width one
-TEMPLATE_WIDTHS = (1, 2, 4, 8, 16, 32, 64, 128)
+# (csrc/lrelu_pixel_norm.cu); any other width takes the runtime-width one.
+# The wide ones are kernels of their own name (lrelu_pn_wide_fwd_kernel,
+# lrelu_pn_wide_bwd_kernel), a thread taking C_g / 32 channels
+WIDE_WIDTHS = (256, 512)
+TEMPLATE_WIDTHS = (1, 2, 4, 8, 16, 32, 64, 128) + WIDE_WIDTHS
 
 
 def kernel_instance(c_g, dtype=torch.float32):
@@ -59,13 +64,16 @@ def kernel_instance(c_g, dtype=torch.float32):
     ``c_g`` channels in ``dtype``: for a width in TEMPLATE_WIDTHS (c_g, S),
     a thread summing S channels before the lanes' butterfly, as measured
     on an H100 -- min(c_g, 4) in float32; min(c_g, 8) in bfloat16, but 4
-    at c_g >= 64; else (None, c_g), the runtime-width instance, whose
+    at c_g >= 64; c_g / 32 at the wide widths, whose vector's lanes are a
+    whole warp; else (None, c_g), the runtime-width instance, whose
     thread walks the whole group (csrc/lrelu_pixel_norm.cu, ``Shape``)."""
     if dtype not in _DTYPE_CODES:
         raise TypeError(f'lrelu_pixel_norm kernel takes float32 or bfloat16, '
                         f'got {dtype}')
     if c_g not in TEMPLATE_WIDTHS:
         return None, c_g
+    if c_g in WIDE_WIDTHS:
+        return c_g, c_g // 32
     return c_g, min(c_g, 4 if dtype == torch.float32 or c_g >= 64 else 8)
 
 
@@ -182,8 +190,13 @@ def declare_entry_points(lib):
                                          i64, f32, f32, i32, ptr]
     lib.lrelu_pixel_norm_slice.argtypes = [i64, i32]
     lib.lrelu_pixel_norm_regs.argtypes = [i64, i32, i32]
-    for fn in (lib.lrelu_pixel_norm_fwd, lib.lrelu_pixel_norm_bwd,
-               lib.lrelu_pixel_norm_slice, lib.lrelu_pixel_norm_regs):
+    fns = [lib.lrelu_pixel_norm_fwd, lib.lrelu_pixel_norm_bwd,
+           lib.lrelu_pixel_norm_slice, lib.lrelu_pixel_norm_regs]
+    if hasattr(lib, 'lrelu_pixel_norm_runtime'):
+        lib.lrelu_pixel_norm_runtime.argtypes = [ptr, ptr, ptr, i64, i64, i64,
+                                                 i64, f32, f32, i32, ptr]
+        fns.append(lib.lrelu_pixel_norm_runtime)
+    for fn in fns:
         fn.restype = ctypes.c_int
     return lib
 
@@ -214,8 +227,11 @@ def kernel_regs(c_g, dtype=torch.float32, bwd=False):
 
 def _case(kernel, x, n_groups):
     """``launches_by_case``'s key of a launch of ``kernel`` ('k1', 'k2')."""
-    if x.shape[1] // n_groups not in TEMPLATE_WIDTHS:
+    c_g = x.shape[1] // n_groups
+    if c_g not in TEMPLATE_WIDTHS:
         kernel += '/runtime'
+    elif c_g in WIDE_WIDTHS:
+        kernel += '/wide'
     return kernel, dtype_name(x), tuple(x.shape), n_groups
 
 
@@ -252,6 +268,23 @@ def _fwd(x, n_groups, neg_slope, eps):
             _DTYPE_CODES[x.dtype], stream)
     _raise_on(rc, 'lrelu_pixel_norm forward')
     launches_by_case[_case('k1', x, n_groups)] += 1
+    return out
+
+
+def runtime_width(x, g=None, n_groups=1, neg_slope=0.2, eps=1e-8):
+    """K1 (``g`` None) or K2 of the runtime-width instance at any group
+    width: what the wide instances were measured against (chip_smoke.py).
+    Counted nowhere; no training path calls it."""
+    _check_device(x)
+    shape = _kernel_args(n_groups, x, *(() if g is None else (g,)))
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _lib().lrelu_pixel_norm_runtime(
+            x.data_ptr(), None if g is None else g.data_ptr(),
+            out.data_ptr(), *shape, neg_slope, eps, _DTYPE_CODES[x.dtype],
+            stream)
+    _raise_on(rc, 'lrelu_pixel_norm runtime-width')
     return out
 
 

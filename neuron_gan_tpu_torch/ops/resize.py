@@ -4,6 +4,9 @@ Counterpart of neuron_gan_tpu/ops/resize.py:
 
 * ``upsample2_bilinear``: ``F.interpolate(scale_factor=2, mode='bilinear')``
   with align_corners=False (reference models.py:257, :335, :507);
+* ``upsample2_nearest``: each pixel repeated 2x2 (Karras et al.'s
+  ``upscale2d``), a broadcast and a reshape, so its backward is a sum
+  with no atomics and differentiates again;
   ``up2_1d`` the same along one axis: the JAX package's shift-and-add
   ``_up2_1d``, which ``upsample2_bilinear`` takes in bfloat16;
 * ``avg_pool`` / ``downsample2_bilinear``: 2x2 average pooling, which is
@@ -32,6 +35,13 @@ def upsample2_bilinear(x):
         return up2_1d(up2_1d(x, 2), 3)
     return F.interpolate(x, scale_factor=2, mode='bilinear',
                          align_corners=False)
+
+
+def upsample2_nearest(x):
+    """NCHW x2 nearest upsample: out[..., 2i + a, 2j + b] = x[..., i, j]."""
+    b, c, h, w = x.shape
+    return x[:, :, :, None, :, None].expand(b, c, h, 2, w, 2).reshape(
+        b, c, 2 * h, 2 * w)
 
 
 def up2_1d(x, dim):

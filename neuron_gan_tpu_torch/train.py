@@ -52,8 +52,7 @@ from neuron_gan_tpu_torch.data.augment import (
 from neuron_gan_tpu_torch.data.neuron_dataset import NeuronDataset
 from neuron_gan_tpu_torch.losses import d_w_loss, g_w_loss
 from neuron_gan_tpu_torch.metrics import swd_multiscale
-from neuron_gan_tpu_torch.models import (
-    DiscriminatorPG, GeneratorPG, GrowthState, PGConfig)
+from neuron_gan_tpu_torch.models import GrowthState, PGConfig, build_nets
 from neuron_gan_tpu_torch.parallel import (
     Grid, gather_state, mesh_ranks, shard_state, spawn)
 from neuron_gan_tpu_torch.runtime import precision_scope, resolve_device
@@ -184,7 +183,8 @@ def load_dataset(config):
                          augmentations=True,
                          im_translation=config.translation,
                          seed=config.seed,
-                         preload_limit_mb=config.dataset_preload_limit_mb)
+                         preload_limit_mb=config.dataset_preload_limit_mb,
+                         n_colors=config.N_colors)
 
 
 def chunk_rng(device, seed, first_epoch):
@@ -241,12 +241,13 @@ class TrainSession:
             packed_min_res=config.packed_min_res,
             packed_lanes=config.packed_lanes,
             use_kernels=config.use_kernels,
+            architecture=config.architecture,
         )
         init = torch.Generator().manual_seed(config.seed)
-        g = GeneratorPG(self.model_cfg, init, device=self.device)
-        d = DiscriminatorPG(self.model_cfg, init, device=self.device)
+        g, d = build_nets(self.model_cfg, init, device=self.device)
         self.state = train_step.init_train_state(g, d, config.beta1, config.RMSprop,
-                                      ema_beta=config.ema_beta)
+                                      ema_beta=config.ema_beta,
+                                      beta2=config.beta2)
         growth = GrowthState(self.model_cfg)
         print('Generator params: {:,}'.format(sum(p.numel() for p in g.parameters())))
         print('Discriminator params: {:,}'.format(sum(p.numel() for p in d.parameters())))
@@ -413,6 +414,8 @@ class TrainSession:
             alpha_start=t0, alpha_step=float(config.alpha_step),
             latent_dim=config.latent_dim,
             ema_beta=float(config.ema_beta),
+            beta2=float(config.beta2),
+            mirror_augment=bool(config.mirror_augment),
         )
 
     # ------------------------------------------------------------ artifacts
@@ -513,6 +516,8 @@ class TrainSession:
             'N_colors': self.model_cfg.n_colors,
             'LeakyReLU_leak': self.model_cfg.neg_slope,
         }
+        if self.model_cfg.architecture != 'neuron':
+            meta['architecture'] = self.model_cfg.architecture
         self.checkpoint.save_state(epoch, to_jax_state(state), meta)
 
     # ------------------------------------------------------------ training

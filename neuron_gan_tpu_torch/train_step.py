@@ -17,9 +17,11 @@ those draws -- so tests can inject the JAX package's draws (its fold_in
 keys at train_step.py:285-306), the only honest comparison between two RNG
 streams that never agree.
 
-Optimizers are torch.optim's Adam(beta1, 0.999, eps=1e-8) and
+Optimizers are torch.optim's Adam(beta1, beta2, eps=1e-8) -- beta2 0.999
+unless the chunk says otherwise (Karras et al. train with 0.99) -- and
 RMSprop(alpha=0.99, eps=1e-8), the semantics the JAX package replicates;
-the per-epoch lr is written into their param groups before each step.
+the per-epoch lr is written into their param groups before each step, and
+the chunk's beta2 before each chunk.
 
 On CUDA the epoch runner replays its steady batch step as a CUDA graph
 (``StepGraphs``): one launch a step in place of the eager step's
@@ -62,12 +64,12 @@ WARMUP_STEPS = 3
 # State and optimizers
 # --------------------------------------------------------------------------
 
-def make_optimizer(params, beta1=0.5, rmsprop=False):
+def make_optimizer(params, beta1=0.5, rmsprop=False, beta2=0.999):
     """torch.optim optimizer with the reference's settings; its lr is set
     per step (``_set_lr``)."""
     if rmsprop:
         return torch.optim.RMSprop(params, lr=0.0, alpha=0.99, eps=1e-8)
-    return torch.optim.Adam(params, lr=0.0, betas=(beta1, 0.999), eps=1e-8)
+    return torch.optim.Adam(params, lr=0.0, betas=(beta1, beta2), eps=1e-8)
 
 
 def _capturable(opt, on):
@@ -106,12 +108,15 @@ class TrainState:
         compare=False)
 
 
-def init_train_state(g, d, beta1=0.5, rmsprop=False, ema_beta=0.0):
+def init_train_state(g, d, beta1=0.5, rmsprop=False, ema_beta=0.0,
+                     beta2=0.999):
     g_ema = None
     if ema_beta > 0:
         g_ema = copy.deepcopy(g).requires_grad_(False)
-    return TrainState(g, d, make_optimizer(g.parameters(), beta1, rmsprop),
-                      make_optimizer(d.parameters(), beta1, rmsprop), g_ema)
+    return TrainState(g, d,
+                      make_optimizer(g.parameters(), beta1, rmsprop, beta2),
+                      make_optimizer(d.parameters(), beta1, rmsprop, beta2),
+                      g_ema)
 
 
 # --------------------------------------------------------------------------
@@ -155,6 +160,10 @@ class ChunkSpec:
     # D's forward in the penalty under torch.utils.checkpoint
     # (d_grad_pen_loss's remat)
     gp_remat: bool = False
+    # Adam's second-moment decay, written into the optimizers each chunk
+    beta2: float = 0.999
+    # the augmentation is the horizontal flip alone (AugmentSpec.mirror)
+    mirror_augment: bool = False
 
     @property
     def n_full_batches(self):
@@ -233,6 +242,9 @@ def _augment_spec(cfg: PGConfig, spec: ChunkSpec):
     """The phase's AugmentSpec; the shear warp only on the fast path, as
     the JAX package builds it."""
     out_size = cfg.resolution(spec.phase)
+    if spec.mirror_augment:
+        return AugmentSpec(crop_size=spec.crop_size, out_size=out_size,
+                           augment=spec.augment, mirror=True)
     return AugmentSpec(crop_size=spec.crop_size, out_size=out_size,
                        translation=spec.translation, augment=spec.augment,
                        fast=spec.fast_augment,
@@ -295,6 +307,14 @@ def _set_lr(opt, lr):
             group['lr'].fill_(lr)
         else:
             group['lr'] = lr
+
+
+def _set_beta2(opt, beta2):
+    """``beta2`` as Adam's second-moment decay of ``opt``'s param groups
+    (an RMSprop has none)."""
+    for group in opt.param_groups:
+        if 'betas' in group:
+            group['betas'] = (group['betas'][0], beta2)
 
 
 def _grads_into(loss, params):
@@ -470,7 +490,7 @@ def graph_key(cfg: PGConfig, spec: ChunkSpec, raw):
     return (spec.phase, raw.shape, raw.dtype, cfg, _augment_spec(cfg, spec),
             spec.n_critic, spec.gp_lambda, spec.drift_epsilon,
             spec.sim_lambda0 > 0, spec.ema_beta, spec.gp_reuse_fakes,
-            spec.gp_remat, spec.latent_dim)
+            spec.gp_remat, spec.latent_dim, spec.beta2)
 
 
 def _params(state):
@@ -647,6 +667,8 @@ def make_epoch_runner(cfg: PGConfig, spec: ChunkSpec, n_epochs: int,
     def run(state: TrainState, images_stack, rng: torch.Generator,
             first_epoch: int):
         frame = images_stack.shape[1]
+        for opt in (state.d_opt, state.g_opt):
+            _set_beta2(opt, spec.beta2)
         reason = graphs = None
         if capture:
             reason = eager_reason(images_stack.device, grid, state.shards,

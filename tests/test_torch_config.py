@@ -34,7 +34,7 @@ def configs(tmp_path, monkeypatch):
 
 # the JAX package's TPU knobs the port replaces, and the port's own
 JAX_ONLY = {'use_pallas', 'pallas_epilogue'}
-PORT_ONLY = {'use_kernels'}
+PORT_ONLY = {'use_kernels', 'architecture', 'beta2', 'mirror_augment'}
 # differ by design: the package's own paths, a random ID, the device
 # ('default' = the card here), and the speed knobs' docs aside
 PATHS = {'root_dir', 'configs_dir', 'data_dir', 'images_dir', 'weights_dir',

@@ -364,18 +364,21 @@ def test_epilogue_sliced_bf16_tracks_pallas(c_g):
 
 
 def test_epilogue_kernel_instance_rule():
-    # a template instance for each power of two up to 128, a thread taking
+    # a template instance for each power of two up to 512, a thread taking
     # S channels (float32 min(C_g, 4); bfloat16 min(C_g, 8), 4 at C_g >=
-    # 64) and the L = C_g / S lanes of a vector inside one warp; every
-    # other width the runtime-width instance, one thread walking the group
-    for dtype, want in ((torch.float32, [1, 2, 4, 4, 4, 4, 4, 4]),
-                        (torch.bfloat16, [1, 2, 4, 8, 8, 8, 4, 4])):
+    # 64; C_g / 32 at the wide widths 256 and 512) and the L = C_g / S
+    # lanes of a vector inside one warp; every other width the
+    # runtime-width instance, one thread walking the group
+    for dtype, want in ((torch.float32, [1, 2, 4, 4, 4, 4, 4, 4, 8, 16]),
+                        (torch.bfloat16, [1, 2, 4, 8, 8, 8, 4, 4, 8, 16])):
+        assert len(want) == len(lpn.TEMPLATE_WIDTHS)
         for c_g, s_want in zip(lpn.TEMPLATE_WIDTHS, want):
             width, s = lpn.kernel_instance(c_g, dtype)
             assert (width, s) == (c_g, s_want)
             assert c_g % s == 0 and 32 % (c_g // s) == 0
-        for c_g in (3, 24, 96, 256):
+        for c_g in (3, 24, 96, 384):
             assert lpn.kernel_instance(c_g, dtype) == (None, c_g)
+    assert lpn.WIDE_WIDTHS == (256, 512)
     # the flagship paths' widths all have template instances
     assert {16, 32, 64, 128} <= set(lpn.TEMPLATE_WIDTHS)
     with pytest.raises(TypeError):
@@ -440,8 +443,12 @@ def test_launches_by_kernel_sums_the_cases(monkeypatch):
     cases = {('k1', 'bfloat16', (8, 64, 32, 32), 4): 3,
              ('k1', 'bfloat16', (8, 64, 16, 16), 4): 2,
              ('k1/runtime', 'float32', (8, 24, 8, 8), 1): 1,
+             ('k1/wide', 'bfloat16', (4, 512, 8, 8), 1): 2,
              ('k2', 'bfloat16', (8, 64, 32, 32), 8): 5}
     monkeypatch.setattr(lpn, 'launches_by_case', collections.Counter(cases))
     assert lpn.launches_by_kernel() == {
-        'k1': {('bfloat16', 4): 5, ('float32', 1): 1},
+        'k1': {('bfloat16', 4): 5, ('float32', 1): 1, ('bfloat16', 1): 2},
         'k2': {('bfloat16', 8): 5}}
+    assert lpn._case('k2', torch.zeros(4, 512, 2, 2), 2) == (
+        'k2/wide', 'float32', (4, 512, 2, 2), 2)
+    assert lpn._case('k1', torch.zeros(4, 96, 2, 2), 1)[0] == 'k1/runtime'
