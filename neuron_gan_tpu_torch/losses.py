@@ -10,7 +10,12 @@ phase and alpha bound.  Parity map to the reference (loss_functions.py):
 * ``d_grad_pen_loss``: WGAN-GP on per-sample interpolates,
   ``lambda * <(||dD/dx_hat||_2 - 1)^2>`` with the norm over (C, H, W)
   (:148-180).  The inner gradient keeps its graph (``create_graph``), so
-  differentiating the penalty is a gradient of a gradient.  ``remat``
+  differentiating the penalty is a gradient of a gradient.  Through the
+  critic's convs that second order is ops/conv.py's: cuDNN's forward and
+  weight-gradient kernels, where PyTorch's own rule runs each weight's term
+  as a whole-image forward conv with batch and channels swapped.  The
+  inner gradient, w.r.t. the interpolates alone, computes no weight
+  gradient of the critic.  ``remat``
   runs the critic's forward over the interpolates under
   ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint``): the
   same operations, recomputed when the inner gradient needs them;

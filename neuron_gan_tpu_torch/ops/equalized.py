@@ -14,6 +14,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from neuron_gan_tpu_torch.ops import conv
+
 
 def calculate_gain(nonlinearity='leaky_relu', param=0.2):
     """torch.nn.init.calculate_gain for the subset the reference uses."""
@@ -57,9 +59,10 @@ def init_linear(d_in, d_out, *, generator, neg_slope=0.2, device=None,
 
 def conv2d(x, weight, bias=None, *, padding=0):
     """Plain NCHW conv (to_rgb / from_rgb carry no runtime scale --
-    reference models.py:133-168); weight and bias cast to ``x.dtype``."""
+    reference models.py:133-168); weight and bias cast to ``x.dtype``.
+    Its second order is ops/conv.py's."""
     b = None if bias is None else bias.to(x.dtype)
-    return F.conv2d(x, weight.to(x.dtype), b, padding=padding)
+    return conv.conv2d(x, weight.to(x.dtype), b, padding=padding)
 
 
 def equalized_conv2d(x, weight, bias=None, *, padding=0, neg_slope=0.2,

@@ -27,6 +27,10 @@ packed channel ``b2 * 4C + (a*2 + b1) * C + i`` for the pixel at
 groups are contiguous blocks of C channels.  Its convs, 1x1 convs and
 native level boundaries (``packed8_*``, ``*_p8``) scatter the 2x2
 kernels along W, exactly; the spatial extent is H/2 x W/4, not square.
+
+Every conv here that the critic runs goes through ops/conv.py's
+``conv2d``, for its second order (the WGAN-GP's gradient of a gradient);
+G's up-convs, never differentiated twice, call ``F.conv2d``.
 """
 
 import functools
@@ -36,6 +40,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from neuron_gan_tpu_torch.ops.conv import conv2d
 from neuron_gan_tpu_torch.ops.equalized import calculate_gain
 from neuron_gan_tpu_torch.ops.pixelnorm import pixel_norm
 from neuron_gan_tpu_torch.ops.resize import edge_pad1, upsample2_bilinear
@@ -183,8 +188,7 @@ def packed_equalized_conv3x3(x_packed, weight, bias=None, *, neg_slope=0.2):
     ORIGINAL (Co, Ci, 3, 3) kernel, ``bias`` the original (Co,)."""
     w_packed = pack_conv3x3_weight(weight, _eq_scale3x3(weight, neg_slope))
     b = None if bias is None else bias.repeat(4).to(x_packed.dtype)
-    return torch.nn.functional.conv2d(x_packed, w_packed.to(x_packed.dtype),
-                                      b, padding=1)
+    return conv2d(x_packed, w_packed.to(x_packed.dtype), b, padding=1)
 
 
 def packed_pixel_norm(x_packed, eps=1e-8, f32_stats=False, n_groups=4):
@@ -215,7 +219,7 @@ def packed_conv1x1(x_packed, weight, bias=None):
     w2 = weight.reshape(co, ci)
     wb = torch.block_diag(w2, w2, w2, w2).reshape(4 * co, 4 * ci, 1, 1)
     b = None if bias is None else bias.repeat(4).to(x_packed.dtype)
-    return torch.nn.functional.conv2d(x_packed, wb.to(x_packed.dtype), b)
+    return conv2d(x_packed, wb.to(x_packed.dtype), b)
 
 
 def packed_avg_pool2(x_packed):
@@ -325,7 +329,7 @@ def pool2_equalized_conv3x3(x_packed, weight, bias=None, *, neg_slope=0.2):
     (B, 4Ci, m, m) -> (B, 4Co, m/2, m/2)."""
     wf = fuse_pool2_conv3x3_weight(weight, _eq_scale3x3(weight, neg_slope))
     b = None if bias is None else bias.repeat(4).to(x_packed.dtype)
-    return F.conv2d(x_packed, wf.to(x_packed.dtype), b, stride=2, padding=1)
+    return conv2d(x_packed, wf.to(x_packed.dtype), b, stride=2, padding=1)
 
 
 def pool2_unpacked_equalized_conv3x3(x_packed, weight, bias=None, *,
@@ -336,7 +340,7 @@ def pool2_unpacked_equalized_conv3x3(x_packed, weight, bias=None, *,
     w = weight * (0.25 * _eq_scale3x3(weight, neg_slope))
     wf = w[:, None, None].expand(co, 2, 2, ci, 3, 3).reshape(co, 4 * ci, 3, 3)
     b = None if bias is None else bias.to(x_packed.dtype)
-    return F.conv2d(x_packed, wf.to(x_packed.dtype), b, padding=1)
+    return conv2d(x_packed, wf.to(x_packed.dtype), b, padding=1)
 
 
 # --------------------------------------------------------------------------
@@ -398,7 +402,7 @@ def packed8_equalized_conv3x3(x_p8, weight, bias=None, *, neg_slope=0.2):
     w8 = pack_conv3x3_weight_w(
         pack_conv3x3_weight(weight, _eq_scale3x3(weight, neg_slope)))
     b = None if bias is None else bias.repeat(8).to(x_p8.dtype)
-    return F.conv2d(x_p8, w8.to(x_p8.dtype), b, padding=1)
+    return conv2d(x_p8, w8.to(x_p8.dtype), b, padding=1)
 
 
 def packed8_conv1x1(x_p8, weight, bias=None):
@@ -407,7 +411,7 @@ def packed8_conv1x1(x_p8, weight, bias=None):
     co, ci = weight.shape[:2]
     wb = torch.block_diag(*[weight.reshape(co, ci)] * 8)
     b = None if bias is None else bias.repeat(8).to(x_p8.dtype)
-    return F.conv2d(x_p8, wb.reshape(8 * co, 8 * ci, 1, 1).to(x_p8.dtype), b)
+    return conv2d(x_p8, wb.reshape(8 * co, 8 * ci, 1, 1).to(x_p8.dtype), b)
 
 
 # --------------------------------------------------------------------------
@@ -459,7 +463,7 @@ def pool2_equalized_conv3x3_p8(x_p8, weight, bias=None, *, neg_slope=0.2,
         wf, stride, n = (fuse_pool2_conv3x3_weight_w8_out4(weight, scale),
                          (2, 1), 4)
     b = None if bias is None else bias.repeat(n).to(x_p8.dtype)
-    return F.conv2d(x_p8, wf.to(x_p8.dtype), b, stride=stride, padding=1)
+    return conv2d(x_p8, wf.to(x_p8.dtype), b, stride=stride, padding=1)
 
 
 def fuse_up2_conv3x3_weight_w8(w, scale=1.0):

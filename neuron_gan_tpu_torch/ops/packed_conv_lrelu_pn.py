@@ -27,9 +27,11 @@ Gradients mirror the JAX package's two custom VJPs:
 * ``PackedConvLReluPN`` (``_fused_pair``): forward = K3, saving
   (x, w_packed, y, r); backward takes (ct_y, ct_r), runs ``Dz`` (K4) and
   then the conv's own adjoints for dx and dw, kept differentiable
-  (``aten.convolution_backward``: what autograd of ``F.conv2d`` calls,
-  without re-running the forward conv), in x's dtype with ``w_packed``
-  cast to it, dw cast back to ``w_packed``'s.
+  (ops/conv.py's ``ConvAdjoints``: the ``aten.convolution_backward`` that
+  autograd of ``F.conv2d`` calls, without re-running the forward conv, for
+  the inputs the running backward uses; its second order is cuDNN's
+  forward and weight-gradient convs), in x's dtype with ``w_packed`` cast
+  to it, dw cast back to ``w_packed``'s.
 * ``Dz`` (``_dz_call``): forward = K4; its own backward autodiffs the plain
   mirror ``packed_dz_plain`` (``_dz_pure``), so the WGAN-GP's gradient of
   a gradient composes.  Third order is not defined.
@@ -61,6 +63,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from neuron_gan_tpu_torch.ops.conv import ConvAdjoints, engine_will_use
 from neuron_gan_tpu_torch.ops.lrelu_pixel_norm import dtype_name
 from neuron_gan_tpu_torch.runtime import kernels
 
@@ -465,10 +468,9 @@ class PackedConvLReluPN(torch.autograd.Function):
         ct_y = torch.zeros_like(y) if ct_y is None else ct_y.contiguous()
         dz = Dz.apply(y, r, ct_y, None if ct_r is None else ct_r.contiguous(),
                       ctx.neg_slope)
-        dx, dw, _ = torch.ops.aten.convolution_backward(
-            dz, x, w_packed.to(x.dtype), None, [1, 1], [1, 1], [1, 1], False,
-            [0, 0], 1, [ctx.needs_input_grad[0], ctx.needs_input_grad[1],
-                        False])
+        dx, dw, _ = ConvAdjoints.apply(dz, x, w_packed.to(x.dtype), [1, 1],
+                                       [1, 1], engine_will_use(ctx)[:2]
+                                       + [False])
         return dx, None if dw is None else dw.to(w_packed.dtype), None, None
 
 
