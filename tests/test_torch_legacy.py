@@ -55,16 +55,6 @@ G_FEATS, D_FEATS, SIZE = (16, 8, 8), (8, 8, 16), 32
 DC_FEATS = (16, 8, 8, 8, 8, 8, 8)
 
 
-@pytest.fixture(autouse=True, scope='module')
-def _one_thread():
-    """Tiny shapes gain nothing from intra-op threads, and the suite's
-    workers share the host's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def leaves(tree):
     return [np.asarray(x) for x in jax.tree.leaves(tree)]
 

@@ -43,14 +43,6 @@ from test_torch_cli import write_config
 from test_torch_parallel import FLOAT32, dataset, leaves, recording_chunks
 
 
-@pytest.fixture(autouse=True, scope='module')
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def paths(tree):
     return jax.tree_util.tree_leaves_with_path(tree)
 
@@ -95,8 +87,7 @@ def _close(got, want):
 
 def test_reduced_shard_gradients_match_one_process(tmp_path):
     spawn(ranks.step_rank, 2, 2, str(tmp_path))
-    one = ranks.fresh_state()
-    stats = ranks.one_step(one)
+    one, stats = ranks.one_process_step()
     want = {'g_grad': [p.grad for p in one.g.parameters()],
             'd_grad': [p.grad for p in one.d.parameters()],
             'g': list(one.g.parameters()), 'd': list(one.d.parameters()),

@@ -34,16 +34,6 @@ FLOAT32 = dict(compute_dtype='float32', matmul_precision='highest',
                checkpointing_period=5)
 
 
-@pytest.fixture(autouse=True, scope='module')
-def _one_thread():
-    """Tiny shapes gain nothing from intra-op threads, and the suite's
-    workers share the host's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def leaves(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in leaves(tree[k])]

@@ -34,16 +34,6 @@ SPEC = dict(phase=2, fading=True, n_critic=1, batch_size=2, n_images=9,
 FRAME = 24
 
 
-@pytest.fixture(autouse=True, scope='module')
-def _one_thread():
-    """Tiny shapes gain nothing from intra-op threads, and the suite's
-    workers share the host's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def fresh_state():
     init = torch.Generator().manual_seed(0)
     return tts.init_train_state(GeneratorPG(CFG, init, device='cpu'),

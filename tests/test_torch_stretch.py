@@ -31,16 +31,6 @@ from neuron_gan_tpu_torch.tools import stretch_1024 as s1k
 from test_torch_packed8 import ROUTES, grad_close
 from test_torch_train_step import load_chip_smoke
 
-@pytest.fixture(autouse=True, scope='module')
-def _one_thread():
-    """Tiny shapes gain nothing from intra-op threads, and the suite's
-    workers share the host's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 # the stretch geometry's last levels at 4^2 -> 64^2: 16 channels, then the
 # 8-channel top level, both in the 2x4 layout (8 groups of 8 at the top)
 TAIL = dict(n_gen_features=(32, 32, 16, 16, 8), n_dis_features=(8, 16, 16, 32, 32),

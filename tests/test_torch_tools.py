@@ -21,16 +21,6 @@ import jax
 REPO = Path(__file__).resolve().parents[1]
 
 
-@pytest.fixture(autouse=True, scope='module')
-def _one_thread():
-    """Tiny shapes gain nothing from intra-op threads, and the suite's
-    workers share the host's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def jax_tool(name):
     """A module of the JAX package's tools/ directory (no package there)."""
     spec = importlib.util.spec_from_file_location(

@@ -55,6 +55,21 @@ def one_step(state, grid=None):
         SPEC.batch_size)
 
 
+def one_process_step():
+    """A fresh state and its ``one_step`` in this process: what
+    ``step_rank``'s reduced gradients are held to.  It runs at the ranks'
+    one thread, because the CPU's conv weight gradients round by the size
+    of the intra-op pool: at two threads or more they differ from the
+    ranks' by over 4x the test's rtol 1e-5 / atol 1e-6."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        state = fresh_state()
+        return state, one_step(state)
+    finally:
+        torch.set_num_threads(n)
+
+
 def step_rank(rank, world_size, init_method, model_size, out_dir):
     """One step under the grid, sound and with the gradient's ``/ M``
     dropped; saves each arm's reduced local gradients (before Adam) and
