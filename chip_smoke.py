@@ -5,6 +5,7 @@ check it.
     python3 chip_smoke.py [--seed N]
     python3 chip_smoke.py --ranks N     # N >= 2 cards: the dp_nccl phase
     python3 chip_smoke.py --wide        # the wide K1/K2 phase alone
+    python3 chip_smoke.py --critic-act  # the Karras critic's LeakyReLU alone
 
 
 Four paths of the port are driven, all at the flagship geometry (16^2 ..
@@ -135,7 +136,12 @@ Phases, each printing one JSON line:
               batch 4) in both types against the plain versions, the
               second order included, each timed beside its bound, the
               plain version and the runtime-width instance at its shape
-              (``check_wide_epilogue``; alone with ``--wide``);
+              (``check_wide_epilogue``; alone with ``--wide``); the
+              Karras critic's LeakyReLU and LeakyReLU + pool kernels
+              (ops/critic_act.py) against the composed path, three orders,
+              each timed beside its bound, the plain version and the
+              composed path (``check_critic_act``; alone with
+              ``--critic-act``);
 5. boundaries each fused level boundary of the mixed and shipping paths
               (the 2x4 ones too) against its decomposed chain at those
               paths' shapes (float32, TF32 off), and both forms' bfloat16
@@ -610,6 +616,102 @@ def check_wide_epilogue(torch, lpn, seed):
                 **instances[f'{dt}/{shape[1]}']})
     return {'phase': 'wide_epilogue', 'instances': instances,
             'by_shape': rows}
+
+
+# the Karras critic's largest LeakyReLU sites at 1024^2, batch 4: from_rgb
+# and the first conv1 (16 channels), and the first level's conv2 before
+# its pool (32 channels); and small ones, under one warp's 1024 elements
+# (the unpooled one off the kernels' vectors)
+CRITIC_ACT_SHAPES = (((4, 16, 1024, 1024), False), ((4, 32, 1024, 1024), True))
+CRITIC_ACT_SMALL = (((2, 3, 6, 10), False), ((2, 3, 6, 8), True))
+
+
+def critic_act_bytes(shape, pooled, itemsize):
+    """Bytes one launch of the critic's kernels moves at ``shape`` (the
+    full-resolution side): unpooled, the input read and the output written
+    in full; pooled, the full side once and a quarter for the other; and
+    the mask, one bit an element."""
+    n = int(np.prod(shape))
+    return n * itemsize * (1.25 if pooled else 2) + n / 8
+
+
+def check_critic_act(torch, ca, seed):
+    """The Karras critic's LeakyReLU kernels (ops/critic_act.py) in
+    float32 and bfloat16 at CRITIC_ACT_SHAPES, off 16-byte alignment (a
+    storage offset) and at CRITIC_ACT_SMALL: the forward, the first order
+    and the penalty's second order equal the composed ``torch.where`` +
+    ``F.avg_pool2d`` path's (up to the sign of zeros); a pooled width off
+    the 16-byte vectors refused; and at
+    CRITIC_ACT_SHAPES each kernel's device time beside its byte bound, the
+    plain version's and the composed path's (forward; its autograd
+    backward)."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+
+    def composed(pooled):
+        def f(z):
+            a = torch.where(z >= 0, z, z * 0.2)
+            return F.avg_pool2d(a, 2) if pooled else a
+        return f
+
+    def three(f, z, g, gg):
+        z, g = z.detach().requires_grad_(), g.detach().requires_grad_()
+        y = f(z)
+        dz, = torch.autograd.grad(y, z, g, create_graph=True)
+        return y, dz, torch.autograd.grad(dz, g, gg)[0]
+
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).removeprefix('torch.')
+        for (shape, pooled), offset in [*((s, 0) for s in CRITIC_ACT_SHAPES),
+                                        (CRITIC_ACT_SHAPES[0], 1),
+                                        *((s, 0) for s in CRITIC_ACT_SMALL)]:
+            op = ca.critic_act_pool if pooled else ca.critic_act
+            z = torch.randn(shape, generator=gen, device='cuda').to(dtype)
+            z.view(-1)[::7] = 0.0
+            g = torch.randn(composed(pooled)(z).shape, generator=gen,
+                            device='cuda').to(dtype)
+            gg = torch.randn(shape, generator=gen, device='cuda').to(dtype)
+            got = three(op, at_offset(torch, z, offset),
+                        at_offset(torch, g, offset), gg)
+            want = three(composed(pooled), z, g, gg)
+            for what, a, b in zip(('y', 'dz', 'second'), got, want):
+                assert torch.equal(a, b), (dt, shape, offset, what)
+            if offset or shape[-1] < 1024:
+                continue
+            item = z.element_size()
+            zb = z >= 0
+            zr = z.detach().requires_grad_()
+            yc = composed(pooled)(zr)
+            bound = critic_act_bytes(shape, pooled, item) / HBM_BYTES_PER_S
+            fwd = ca._act_pool if pooled else ca._act
+            _, mask = fwd(z, None, 0.2)
+            row = {
+                'dtype': dt, 'x': list(shape), 'pooled': pooled,
+                'bound_ms': bound * 1e3,
+                'fwd_ms': device_ms(lambda: fwd(z, None, 0.2)),
+                'masked_fwd_ms': device_ms(lambda: fwd(gg, mask, 0.2)),
+                'library_fwd_ms': device_ms(lambda: composed(pooled)(z)),
+                'library_bwd_ms': device_ms(lambda: torch.autograd.grad(
+                    yc, zr, g, retain_graph=True))}
+            if pooled:
+                row['adjoint_ms'] = device_ms(lambda: ca._unpool(g, mask, 0.2))
+                row['plain_fwd_ms'] = device_ms(
+                    lambda: ca.act_pool_plain(z, z >= 0))
+                row['plain_adjoint_ms'] = device_ms(
+                    lambda: ca.unpool_act_plain(g, zb))
+            else:
+                row['plain_fwd_ms'] = device_ms(
+                    lambda: ca.act_plain(z, z >= 0))
+            rows.append(row)
+        try:
+            ca.critic_act_pool(torch.zeros((2, 3, 6, 10), dtype=dtype,
+                                           device='cuda'))
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f'{dt}: a pooled width of 10 was taken')
+    return {'phase': 'critic_act', 'by_shape': rows}
 
 
 # Tolerances of the packed conv pair against its plain version (cuDNN's
@@ -3396,6 +3498,8 @@ def main():
                     help='run only the dp_nccl phase, over this many cards')
     ap.add_argument('--wide', action='store_true',
                     help='run only the wide K1/K2 phase (C_g 256 and 512)')
+    ap.add_argument('--critic-act', action='store_true',
+                    help="run only the Karras critic's LeakyReLU phase")
     args = ap.parse_args()
 
     import torch
@@ -3423,9 +3527,11 @@ def main():
                                     or 'entry function' in ln]}
                       for n, (s, log) in built.items()}})
 
-    if args.wide:
+    if args.wide or args.critic_act:
+        import neuron_gan_tpu_torch.ops.critic_act as ca
         import neuron_gan_tpu_torch.ops.lrelu_pixel_norm as lpn
-        emit(check_wide_epilogue(torch, lpn, args.seed))
+        emit(check_wide_epilogue(torch, lpn, args.seed) if args.wide
+             else check_critic_act(torch, ca, args.seed))
         print(smi, flush=True)
         emit({'ok': True, 'device': {'platform': 'gpu',
                                      'kind': torch.cuda.get_device_name(0),
@@ -3450,6 +3556,7 @@ def main():
 def smoke(torch, seed, smi, t_start, work):
     """Every phase but dp_nccl, in order, on one card; ``work`` a scratch
     directory."""
+    import neuron_gan_tpu_torch.ops.critic_act as ca
     import neuron_gan_tpu_torch.ops.lrelu_pixel_norm as lpn
     import neuron_gan_tpu_torch.ops.packed_conv_lrelu_pn as pcl
 
@@ -3486,6 +3593,7 @@ def smoke(torch, seed, smi, t_start, work):
                                      if e['kernel'] == 'k1'])
     emit({'phase': 'kernels', 'pair': 'lrelu_pixel_norm', **epi})
     emit(check_wide_epilogue(torch, lpn, seed))
+    emit(check_critic_act(torch, ca, seed))
     conv = check_packed_kernels(torch, pcl, seed)
     emit({'phase': 'kernels', 'pair': 'packed_conv_lrelu_pn', **conv})
     conv16 = check_packed_kernels_bf16(torch, pcl, seed)

@@ -31,8 +31,10 @@ Precision follows models/pggan.py: ``compute_dtype`` is the blocks'
 activation type; under 'mixed' the latent norm and the dense stem layer,
 the image G hands out and D's head run in float32.  With ``use_kernels``
 every LeakyReLU + PixelNorm of G, the stem's included, runs in the CUDA
-kernel pair (ops/lrelu_pixel_norm.py); the packed layouts are refused
-(``PGConfig``).
+kernel pair (ops/lrelu_pixel_norm.py), and every LeakyReLU of D in the
+critic's kernel family (ops/critic_act.py), each level's last one with the
+level's 2x2 pool; the fade-in's pool of the image stays ``avg_pool``.  The
+packed layouts are refused (``PGConfig``).
 """
 
 import math
@@ -45,6 +47,7 @@ from neuron_gan_tpu_torch.models.pggan import PGConfig, _epilogue
 from neuron_gan_tpu_torch.ops import (
     avg_pool, conv2d, fade_in, leaky_relu, minibatch_stddev, pixel_norm,
     upsample2_nearest)
+from neuron_gan_tpu_torch.ops.critic_act import critic_act, critic_act_pool
 from neuron_gan_tpu_torch.runtime import resolve_device
 
 GAIN = math.sqrt(2.0)
@@ -166,6 +169,8 @@ class DiscriminatorKarras(nn.Module):
             'dense1': Dense(f[-1], 1, gain=1.0, **kw)})
 
     def _act(self, x):
+        if self.cfg.use_kernels:
+            return critic_act(x, self.cfg.neg_slope)
         return leaky_relu(x, self.cfg.neg_slope)
 
     def _from_rgb(self, x, i):
@@ -173,8 +178,10 @@ class DiscriminatorKarras(nn.Module):
 
     def _block(self, y, i):
         p = self.blocks[i]
-        y = self._act(p['conv2'](self._act(p['conv1'](y))))
-        return avg_pool(y, 2)
+        y = p['conv2'](self._act(p['conv1'](y)))
+        if self.cfg.use_kernels:
+            return critic_act_pool(y, self.cfg.neg_slope)
+        return avg_pool(self._act(y), 2)
 
     def _head(self, y):
         if self.cfg.mixed:

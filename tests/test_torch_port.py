@@ -178,7 +178,8 @@ def test_chip_smoke_launch_sites_match_expected_launches(path):
 
 
 def test_kernel_sources_and_library_names():
-    assert kernels.kernel_names() == ['lrelu_pixel_norm', 'packed_conv_lrelu_pn']
+    assert kernels.kernel_names() == ['critic_lrelu_pool', 'lrelu_pixel_norm',
+                                     'packed_conv_lrelu_pn']
     path = kernels.library_path('lrelu_pixel_norm')
     # content-addressed: the name changes with the source or the flags
     assert path.parent == kernels.BUILD_DIR
